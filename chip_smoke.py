@@ -6,15 +6,21 @@
 Builds the port's CUDA kernels from ``locust_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
 shapes of the main path, then drives the main path -- single-device
-WordCount (Map -> Process -> Reduce) through ``MapReduceEngine.run_fused``,
-``MapReduceEngine.timed_run`` and the CLI at the CLI's default widths,
-each over >= 32 MiB made by replicating ``data/sample_corpus.txt`` (the
+WordCount (Map -> Process -> Reduce) at the CLI's default widths, each
+run over >= 32 MiB made by replicating ``data/sample_corpus.txt`` (the
 CLI reads it from a file in a temporary directory) -- and checks each
-output against a plain Python oracle.  The kernels' launch counters are
-set to 0 just before each of the three paths and read just after it;
-each path must launch each kernel exactly as often as its blocks demand.
-The ``kernels`` line reports the CLI's counts as ``launches`` and all
-three in ``launches_by_path``.
+output against a plain Python oracle.  The paths: ``sort_mode="bitonic"``
+through ``MapReduceEngine.run_fused``, ``MapReduceEngine.timed_run`` and
+the CLI; ``sort_mode="fused"`` (the fused kernel + the hash-table fold)
+through ``run_fused`` and the CLI (``--sort-mode fused --no-timing``);
+``"hasht"`` and ``"hasht-mxu"`` through ``run_fused``; and ``"fused"``
+through ``run_fused`` over a seeded corpus whose vocabulary overfills
+the kernel's table, so that flagged blocks take the stock re-fold.  The
+kernels'
+launch counters are set to 0 just before each path and read just after
+it; each path must launch each kernel exactly as often as its blocks
+demand.  The ``kernels`` line reports each kernel's count on its CLI path
+as ``launches`` and every path's in ``launches_by_path``.
 
 Output: one line per check, the card's name and power limit, one JSON
 line with each kernel's numbers, and last a JSON line
@@ -155,7 +161,13 @@ def main() -> int:
     from locust_tpu_torch import _build, cli
     from locust_tpu_torch.config import EngineConfig
     from locust_tpu_torch.core import bytes_ops
-    from locust_tpu_torch.engine import MapReduceEngine
+    from locust_tpu_torch.core.kv import KVBatch
+    from locust_tpu_torch.core.packing import pack_keys
+    from locust_tpu_torch.engine import MapReduceEngine, finalize_host_pairs
+    from locust_tpu_torch.ops.kernels.fused_fold import (
+        fused_block_preagg,
+        fused_preagg_reference,
+    )
     from locust_tpu_torch.ops.kernels.sort import (
         bitonic_reference,
         bitonic_sort_rows,
@@ -245,6 +257,61 @@ def main() -> int:
                 err_b = max(err_b, err)
             log(f"  n={n} (pad {padded_size(n)}), 9 payloads, dups + all-equal: exact keys, rows consistent")
 
+    cfg_f = EngineConfig(sort_mode="fused", use_pallas=True)
+    with phase("kernel C (fused pre-aggregation) against its plain version"):
+        # Per case: the union of table and residual rows with duplicate
+        # keys re-merged, the overflow and the flag must equal the plain
+        # version's; where the flag is set the rows are discarded by the
+        # engine and only the flag and overflow count.
+        rng = np.random.default_rng(1)
+        alphabet = np.frombuffer(b"abc  ,.-\x00\r\n'\"()\t;:QZ\xe9", np.uint8)
+        fuzz_c = alphabet[rng.integers(0, len(alphabet), (BL, W))]
+        fuzz_c[rng.random(BL) < 0.2, 40:100] = ord("w")  # tokens longer than K
+        fuzz_c[rng.random(BL) < 0.1] = ord("x")          # one token filling the row
+        wide = bytes_ops.strings_to_rows(
+            [a + b" " + b for a, b in zip(lines[:BL // 2], lines[BL // 2:BL])], 2 * W)
+        cases = [
+            ("fuzz", fuzz_c, cfg_f, {}, False),
+            ("corpus", rows[:BL], cfg_f, {}, False),
+            ("corpus_tail", rows[-BL:], cfg_f, {}, False),
+            # 64 table slots strand most keys; 1,024 residual rows per tile
+            # hold all of a tile's <= 640 emits, so the flag stays clear.
+            ("corpus, stranding", rows[:BL], cfg_f, {"table_slots": 64, "resid_rows": 1024}, False),
+            # Every tile of kernel A's fuzz has far more than 64 + 32
+            # distinct keys: the flag is set in any order of insertion.
+            ("fuzz A, overflow", fuzz, cfg_f, {"table_slots": 64, "resid_rows": 32}, True),
+            # Other shapes the kernel takes: wider lines, narrower keys and
+            # 64-line tiles; 64-byte keys and 40 emits (above 48 KB of
+            # shared memory); 128-line tiles with one probe.
+            ("corpus, width 256", wide, EngineConfig(
+                sort_mode="fused", line_width=2 * W, key_width=16, emits_per_line=8),
+             {"tile_lines": 64, "probes": 2}, False),
+            ("fuzz, K=64 E=40", fuzz_c, EngineConfig(
+                sort_mode="fused", key_width=64, emits_per_line=40), {}, False),
+            ("corpus, 128-line tiles, 1 probe", rows[:BL], cfg_f,
+             {"tile_lines": 128, "probes": 1, "resid_rows": 1024}, False),
+        ]
+        err_c = 0
+        for name, blk, ccfg, kw, want_flag in cases:
+            x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
+            tab, res, ovf, flag = fused_block_preagg(x, ccfg, **kw)
+            rtab, rres, rovf, rflag = fused_preagg_reference(x, ccfg, **kw)
+            torch.cuda.synchronize()
+            got = dict(finalize_host_pairs(KVBatch.concat(tab, res)))
+            plain = dict(finalize_host_pairs(KVBatch.concat(rtab, rres)))
+            err = max(abs(int(ovf) - int(rovf)), abs(int(flag) - int(rflag)))
+            if not want_flag:
+                err = max([err] + [abs(got.get(k, 0) - plain.get(k, 0)) for k in got.keys() | plain.keys()])
+            if err or bool(flag) != want_flag:
+                raise AssertionError(f"fused kernel differs from plain on {name}: max abs err {err}, "
+                                     f"flag {bool(flag)} (plain {bool(rflag)}, expected {want_flag})")
+            err_c = max(err_c, err)
+            log(f"  {name} {list(blk.shape)} E={ccfg.emits_per_line} K={ccfg.key_width} "
+                f"{kw or 'defaults'}: "
+                f"{'flag set, as expected' if want_flag else f'{len(got)} distinct keys exact'}, "
+                f"table rows {int(tab.valid.sum())}, residual rows {int(res.valid.sum())}, "
+                f"overflow {int(ovf)}")
+
     with phase("main path: run_fused, timed_run and the CLI, WordCount over the replicated corpus"):
         log(f"  corpus: {len(lines)} lines, {corpus_bytes} bytes ({corpus_bytes / 2**20:.2f} MiB), "
             f"cfg block_lines={BL} line_width={W} key_width={K} emits={E} "
@@ -255,23 +322,25 @@ def main() -> int:
         eng.run_fused(rows[: 2 * BL])  # first-call warm-up, outside the counted windows
         torch.cuda.synchronize()
 
+        counters = {"tokenize": tokenize_block_kernel, "bitonic_sort": bitonic_sort_rows,
+                    "fused_fold": fused_block_preagg}
+
         def counted(fn):
-            """Run ``fn`` with both launch counters set to 0 just before it;
+            """Run ``fn`` with every launch counter set to 0 just before it;
             returns its result and the counts read just after it."""
-            tokenize_block_kernel.launches = 0
-            bitonic_sort_rows.launches = 0
+            for wrapper in counters.values():
+                wrapper.launches = 0
             out = fn()
             torch.cuda.synchronize()
-            return out, {"tokenize": tokenize_block_kernel.launches,
-                         "bitonic_sort": bitonic_sort_rows.launches}
+            return out, {name: wrapper.launches for name, wrapper in counters.items()}
 
         # Each path's exact count: one tokenizer launch per block; one
         # sort per block for the fold, two (Process + table merge) for
         # the staged run, which the CLI's default stage report runs.
         expected = {
-            "run_fused": {"tokenize": nblocks, "bitonic_sort": nblocks},
-            "timed_run": {"tokenize": nblocks, "bitonic_sort": 2 * nblocks},
-            "cli": {"tokenize": nblocks, "bitonic_sort": 2 * nblocks},
+            "run_fused": {"tokenize": nblocks, "bitonic_sort": nblocks, "fused_fold": 0},
+            "timed_run": {"tokenize": nblocks, "bitonic_sort": 2 * nblocks, "fused_fold": 0},
+            "cli": {"tokenize": nblocks, "bitonic_sort": 2 * nblocks, "fused_fold": 0},
         }
         by_path = {}
         torch.cuda.reset_peak_memory_stats()
@@ -323,6 +392,97 @@ def main() -> int:
             f"over the stage total")
         log(f"  peak device memory (run_fused + timed_run): {peak_mib:.1f} MiB")
 
+    with phase("main path under sort_mode fused, hasht and hasht-mxu: run_fused and the CLI"):
+        # "fused": one fused-kernel launch per block, no sort; the
+        # tokenizer runs only in the stock re-fold of a flagged block.
+        # "hasht"/"hasht-mxu": the tokenizer per block, the hash-table fold.
+        engines = {mode: MapReduceEngine(EngineConfig(sort_mode=mode, use_pallas=True))
+                   for mode in ("fused", "hasht", "hasht-mxu")}
+        for e in engines.values():
+            e.run_fused(rows[: 2 * BL])  # first-call warm-up
+        results = {}
+        for mode, e in engines.items():
+            key = "run_fused_" + mode.replace("-", "_")
+            results[key], by_path[key] = counted(lambda: e.run_fused(rows))
+            expected[key] = ({"tokenize": 0, "bitonic_sort": 0, "fused_fold": nblocks}
+                             if mode == "fused" else
+                             {"tokenize": nblocks, "bitonic_sort": 0, "fused_fold": 0})
+        refolds = results["run_fused_fused"].fused_refolds
+        expected["run_fused_fused"]["tokenize"] = refolds
+        with tempfile.TemporaryDirectory() as tmp:
+            corpus_file = os.path.join(tmp, "corpus.txt")
+            with open(corpus_file, "wb") as f:
+                f.write(b"\n".join(lines) + b"\n")
+            out = io.BytesIO()
+            cli_stdout = io.TextIOWrapper(out, write_through=True)
+            with contextlib.redirect_stdout(cli_stdout):
+                rc, by_path["cli_fused"] = counted(
+                    lambda: cli.main([corpus_file, "--sort-mode", "fused", "--no-timing"]))
+            cli_bytes = out.getvalue()
+        expected["cli_fused"] = {"tokenize": 0, "bitonic_sort": 0, "fused_fold": nblocks}
+        for name, res in results.items():
+            pairs = res.to_host_pairs()
+            if pairs != oracle or res.truncated:
+                raise AssertionError(f"{name}: host pairs differ from the oracle "
+                                     f"({len(pairs)} vs {len(oracle)} keys)")
+            log(f"  {name}: {len(pairs)} distinct keys == oracle, overflow {res.overflow_tokens}, "
+                f"fused_kernel {res.fused_kernel}, flagged re-folds {res.fused_refolds}")
+        if refolds != 0 or results["run_fused_fused"].fused_kernel != "batch":
+            raise AssertionError(f"run_fused under fused: {refolds} flagged re-folds, expected 0")
+        if rc != 0 or cli_bytes != want:
+            raise AssertionError("CLI --sort-mode fused stdout differs from the oracle")
+        log(f"  CLI (--sort-mode fused --no-timing, {corpus_bytes} bytes): stdout == oracle")
+
+        # A vocabulary past the kernel table: 40,000 seeded words, 10 per
+        # line, give each 4,096-line block about 25,000 distinct keys for
+        # the 8,192-slot kernel table, so its tiles strand more keys than
+        # their 32 residual rows hold.  Such blocks take the flagged
+        # re-fold: map_fn through the tokenizer kernel, then the hasht fold.
+        vrng = np.random.default_rng(2)
+        letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+        vocab = [letters[vrng.integers(0, 26, n)].tobytes() for n in vrng.integers(3, 11, 40_000)]
+        vlines = [b" ".join(vocab[j] for j in ids)
+                  for ids in vrng.integers(0, len(vocab), (8 * BL, 10))]
+        vrows = bytes_ops.strings_to_rows(vlines, W)
+        t0 = time.perf_counter()
+        vres, by_path["run_fused_fused_vocab"] = counted(lambda: engines["fused"].run_fused(vrows))
+        v_s = time.perf_counter() - t0
+        vblocks = -(-len(vlines) // BL)
+        expected["run_fused_fused_vocab"] = {
+            "tokenize": vres.fused_refolds, "bitonic_sort": 0, "fused_fold": vblocks}
+        voracle = sorted(oracle_wordcount(vlines, W, E, K).items())
+        vpairs = vres.to_host_pairs()
+        if vpairs != voracle or vres.truncated:
+            raise AssertionError(f"run_fused under fused, large vocabulary: host pairs differ "
+                                 f"from the oracle ({len(vpairs)} vs {len(voracle)} keys)")
+        if vres.fused_refolds == 0:
+            raise AssertionError("run_fused under fused, large vocabulary: no block was "
+                                 "flagged, the re-fold branch did not run")
+        log(f"  run_fused_fused_vocab ({len(vlines)} lines, {vrows.nbytes} bytes of rows, "
+            f"{vblocks} blocks): {len(vpairs)} distinct keys == oracle, flagged re-folds "
+            f"{vres.fused_refolds} of {vblocks} blocks, {v_s * 1e3:.3f} ms")
+        for name in ("run_fused_fused", "cli_fused", "run_fused_hasht", "run_fused_hasht_mxu",
+                     "run_fused_fused_vocab"):
+            got = by_path[name]
+            n = vblocks if name == "run_fused_fused_vocab" else nblocks
+            log(f"  launches in {name} over {n} blocks: {got}, expected {expected[name]}")
+            if got != expected[name]:
+                raise AssertionError(f"{name} did not launch each kernel as its path must: "
+                                     f"{got} != {expected[name]}")
+        mode_mbs = {"bitonic": corpus_bytes / med / 1e6}
+        for mode in ("fused", "hasht"):
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                engines[mode].run_fused(rows)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            m = float(np.median(runs))
+            mode_mbs[mode] = corpus_bytes / m / 1e6
+            log(f"  run_fused under {mode}, 5 runs: median {m * 1e3:.3f} ms, "
+                f"{mode_mbs[mode]:.3f} MB/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
+        log(f"  run_fused MB/s (medians of 5): {json.dumps(mode_mbs)}")
+
     with phase("times at the main path's shapes"):
         x = torch.from_numpy(np.ascontiguousarray(rows[:BL])).to(dev)
         # cuda_ms: events around back-to-back calls, what a caller waits
@@ -368,16 +528,40 @@ def main() -> int:
         fold_n = cfg.resolved_table_size + cfg.emits_per_block
         ((k_ms, k_dev), (p_ms, _), (l_ms, _)), b, by = b_rows[fold_n]
 
-    with phase("where the device time goes: torch.profiler over run_fused, 8 blocks"):
-        sub = rows[: 8 * BL]
-        kern = device_events(torch, lambda: eng.run_fused(sub))
-        if not kern:
-            log("  the profiler recorded no device time: busy share not measured")
-        else:
-            span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
+        def fused_kernel():
+            return fused_block_preagg(x, cfg_f)
+
+        def fused_plain():
+            return fused_preagg_reference(x, cfg_f)
+
+        def fused_library():
+            # The same distinct keys and counts by the tokenizer kernel and
+            # one library call.
+            keys, valid, _ = tokenize_block_kernel(x, E, K)
+            return torch.unique(pack_keys(keys)[valid], dim=0, return_counts=True)
+
+        c_times = [(cuda_ms(torch, f), device_ms(torch, f))
+                   for f in (fused_kernel, fused_plain, fused_library)]
+        (c_ms, c_dev), (c_plain, c_plain_dev), (c_lib, c_lib_dev) = c_times
+        tab, res, _, _ = fused_kernel()
+        c_bytes = BL * W + (tab.size + res.size) * (K + 4) + 8
+        c_bound, c_by = bound_ms(c_bytes, BL * W)
+        log(f"  fused pre-aggregation [{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} "
+            f"residual rows: kernel {c_ms:.4f} ms (device {_ms(c_dev)}), plain {c_plain:.4f} ms "
+            f"(device {_ms(c_plain_dev)}), tokenizer + torch.unique {c_lib:.4f} ms "
+            f"(device {_ms(c_lib_dev)}), bound {c_bound:.6f} ms ({c_by}, {c_bytes} bytes)")
+
+    sub = rows[: 8 * BL]
+    for mode, e in (("bitonic", eng), ("fused", engines["fused"]), ("hasht", engines["hasht"])):
+        with phase(f"where the device time goes: torch.profiler over run_fused under {mode}, 8 blocks"):
+            kern = device_events(torch, lambda: e.run_fused(sub))
+            if not kern:
+                log("  the profiler recorded no device time: busy share not measured")
+                continue
+            span = max(k.time_range.end for k in kern) - min(k.time_range.start for k in kern)
             by_name = collections.Counter()
-            for e in kern:
-                by_name[e.name[:70]] += e.time_range.elapsed_us()
+            for k in kern:
+                by_name[k.name[:70]] += k.time_range.elapsed_us()
             busy = sum(by_name.values())
             log(f"  {len(kern)} device ops, busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms "
                 f"device window: busy share {busy / span:.3f}")
@@ -389,7 +573,7 @@ def main() -> int:
         {"name": "tokenize", "route": "cuda", "status": "ported",
          "source": "locust_tpu_torch/csrc/tokenize.cu",
          "replaces": "locust_tpu/ops/pallas/tokenize.py:35",
-         "launches": by_path["cli"]["tokenize"],
+         "launches": by_path["cli"]["tokenize"],  # the default CLI (bitonic)
          "launches_by_path": {p: c["tokenize"] for p, c in by_path.items()},
          "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by,
@@ -403,6 +587,15 @@ def main() -> int:
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
          "library_ms": l_ms, "device_ms": k_dev,
          "shape": f"n={fold_n} x {cfg.key_lanes + 1} payloads"},
+        {"name": "fused_fold", "route": "cuda", "status": "ported",
+         "source": "locust_tpu_torch/csrc/fused_fold.cu",
+         "replaces": "locust_tpu/ops/pallas/fused_fold.py:155",
+         "launches": by_path["cli_fused"]["fused_fold"],
+         "launches_by_path": {p: c["fused_fold"] for p, c in by_path.items()},
+         "max_abs_err": err_c,
+         "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
+         "library_ms": c_lib, "device_ms": c_dev,
+         "shape": f"[{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} residual rows"},
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

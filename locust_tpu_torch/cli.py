@@ -8,7 +8,9 @@ modes 1/2, ``--stream``, ``--mesh`` and the rest are later slices.
 
 Runs on CUDA unless ``--backend cpu``; with no GPU it exits with an
 error.  The map goes through the tokenizer kernel and the Process stage
-defaults to the bitonic kernel (``sort_mode="bitonic"``).
+defaults to the bitonic kernel (``sort_mode="bitonic"``); ``--sort-mode
+hasht`` and ``fused`` fold through the hash table, with each block
+pre-aggregated by the fused kernel.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--key-width", type=int, default=32)
     p.add_argument("--emits-per-line", type=int, default=20)
     p.add_argument("--sort-mode", choices=list(PORTED_SORT_MODES), default="bitonic",
-                   help="Process-stage sort: 'bitonic' (the CUDA kernel) or "
-                        "'hashp1' (torch.sort of the same folded key)")
+                   help="Process-stage sort: 'bitonic' (the CUDA kernel), "
+                        "'hashp1' (torch.sort of the same folded key), or "
+                        "the hash-table fold: 'hasht' and 'fused' (the "
+                        "fused kernel), 'hasht-mxu' (matrix-product combine)")
     p.add_argument("--no-timing", action="store_true",
                    help="fold block after block without the per-stage report")
     p.add_argument("--limit", type=int, default=None,
@@ -68,12 +72,16 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
+    # The JAX compiler's one wordcount rewrite (plan/optimize.py
+    # fuse_fold_kernel, applied in plan/compile.py _wordcount_engine): a
+    # "hasht" fold runs as "fused", which gives the same table.
+    sort_mode = "fused" if args.sort_mode == "hasht" else args.sort_mode
     cfg = EngineConfig(
         block_lines=args.block_lines,
         line_width=args.line_width,
         key_width=args.key_width,
         emits_per_line=args.emits_per_line,
-        sort_mode=args.sort_mode,
+        sort_mode=sort_mode,
         use_pallas=True,
     )
     try:

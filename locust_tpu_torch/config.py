@@ -2,30 +2,74 @@
 
 The port's own copy of the JAX package's ``locust_tpu/config.py`` surface
 that the single-device WordCount path needs: the delimiter sets, the sort
-mode names, the bitonic launch plan and ``EngineConfig``.  ``EngineConfig``
-keeps the JAX class's fields, their order and their defaults, so that
-``repr(cfg)`` and ``cfg.fingerprint()`` are equal in both packages (a
-checkpoint written by one names the same configuration in the other).
+mode names, the bitonic launch plan, the hash-table fold and fused-kernel
+knobs, and ``EngineConfig``.  ``EngineConfig`` keeps the JAX class's
+fields, their order and their defaults, so that ``repr(cfg)`` and
+``cfg.fingerprint()`` are equal in both packages (a checkpoint written by
+one names the same configuration in the other).  The knobs read the same
+environment variables, with the same defaults and validation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 # Tokenization delimiter set, byte for byte the reference's strtok
 # delimiters (reference MapReduce/src/main.cu:138).
 DELIMITERS: bytes = b" ,.-;:'()\"\t"
 
-# Process-stage sort strategies, named as in the JAX package.  This slice
-# runs "bitonic" and "hashp1" (ops/process_stage.PORTED_SORT_MODES); the
-# rest raise NotImplementedError until their slice lands.
+# Process-stage sort strategies, named as in the JAX package.  The ported
+# ones are ops/process_stage.PORTED_SORT_MODES; the rest raise
+# NotImplementedError until their slice lands.
 SORT_MODES = (
     "hash", "hashp", "hashp2", "hashp1", "hash1", "radix", "bitonic", "lex",
     "hasht", "hasht-mxu", "fused",
 )
 
-# The sort-free hash-table fold family (ROADMAP.md queue 1, slice 2).
+# The sort-free hash-table fold family (ops/hash_table.py): "hasht" combines
+# by scatter, "hasht-mxu" by a one-hot matrix product, "fused" is hasht with
+# each block pre-aggregated by the fused kernel (ops/kernels/fused_fold.py).
+# The three give bit-identical tables.
 HASHT_FAMILY = ("hasht", "hasht-mxu", "fused")
+
+# Probe rounds of the hash-table fold before a row falls to the exact
+# residual/sort ladder (ops/hash_table.aggregate_exact).
+HASHT_PROBES: int = int(os.environ.get("LOCUST_HASHT_PROBES", 4))
+if HASHT_PROBES < 1:
+    raise ValueError(f"LOCUST_HASHT_PROBES must be >= 1, got {HASHT_PROBES}")
+
+# --- fused map->aggregate kernel (ops/kernels/fused_fold.py) ---
+
+# Lines per kernel tile (one CUDA thread block each).  A multiple of 32, as
+# in the JAX package, so both packages accept the same configurations.
+FUSED_TILE_LINES: int = int(os.environ.get("LOCUST_FUSED_TILE_LINES", 32))
+if FUSED_TILE_LINES < 32 or FUSED_TILE_LINES % 32 != 0:
+    raise ValueError(
+        f"LOCUST_FUSED_TILE_LINES must be a positive multiple of 32, "
+        f"got {FUSED_TILE_LINES}"
+    )
+
+# Slots of the per-block kernel table; a power of two so the probe's
+# ``h % slots`` is a bitwise AND.  Keys past it strand to the residual.
+FUSED_TABLE_SLOTS: int = int(os.environ.get("LOCUST_FUSED_TABLE_SLOTS", 8192))
+if FUSED_TABLE_SLOTS < 512 or FUSED_TABLE_SLOTS & (FUSED_TABLE_SLOTS - 1):
+    raise ValueError(
+        f"LOCUST_FUSED_TABLE_SLOTS must be a power of two >= 512, "
+        f"got {FUSED_TABLE_SLOTS}"
+    )
+
+# Residual rows per tile: distinct keys of a tile that every probe
+# stranded.  More than this sets the kernel's flag, and the engine
+# re-folds the block through the stock path.
+FUSED_RESIDUAL_ROWS: int = int(
+    os.environ.get("LOCUST_FUSED_RESIDUAL_ROWS", 32)
+)
+if FUSED_RESIDUAL_ROWS < 8 or FUSED_RESIDUAL_ROWS & (FUSED_RESIDUAL_ROWS - 1):
+    raise ValueError(
+        f"LOCUST_FUSED_RESIDUAL_ROWS must be a power of two >= 8, "
+        f"got {FUSED_RESIDUAL_ROWS}"
+    )
 
 # Bytes that end a token on the device beyond the strtok set: NUL (row
 # padding and embedded NULs) and the newline pair.

@@ -16,33 +16,26 @@
 // TPU has no cheap scalar gather; here a lane reads the bytes it needs.
 //
 // Design: the warp copies its line into shared memory (coalesced byte
-// loads).  Lane j owns ceil(W/32) consecutive bytes, counts the token
-// starts in them, and a warp shuffle scan turns the counts into token
-// ids.  The lane holding a start with token id < E measures that token
-// (up to K bytes) and records (start, length) for its slot in shared
-// memory.  Then the whole warp writes the line's E*K key bytes as
-// coalesced 32-bit words, zero past each token's end and in every slot
-// without a token.  No 3-D intermediate and no second pass over memory.
-// The TPU's 64-line tile and 128-multiple width are layout rules of the
-// TPU and do not apply: any L, any W <= kMaxWidth, any E <= kMaxEmits and
-// K a multiple of 4.
+// loads) and tokenizes it with warp_tokenize_row (tokenize.cuh, shared
+// with the fused kernel).  Then the whole warp writes the line's E*K key
+// bytes as coalesced 32-bit words, zero past each token's end and in
+// every slot without a token.  No 3-D intermediate and no second pass over
+// memory.  The TPU's 64-line tile and 128-multiple width are layout rules
+// of the TPU and do not apply: any L, any W <= kMaxWidth, any
+// E <= kMaxEmits and K a multiple of 4.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tokenize.cuh"
+
 namespace {
+
+using locust_tok::DelimMask;
 
 constexpr int kWarps = 8;          // lines per block
 constexpr int kMaxWidth = 2048;    // bytes per line
 constexpr int kMaxEmits = 256;     // slots per line
-
-struct DelimMask {
-  unsigned long long w[4];         // bit b set: byte b ends a token
-};
-
-__device__ __forceinline__ bool is_delim(const DelimMask& m, unsigned b) {
-  return (m.w[b >> 6] >> (b & 63)) & 1ull;
-}
 
 __global__ void tokenize_kernel(const uint8_t* __restrict__ lines,
                                 long long num_lines, int width, int emits,
@@ -64,58 +57,15 @@ __global__ void tokenize_kernel(const uint8_t* __restrict__ lines,
   for (int i = lane; i < width; i += 32) row[i] = src[i];
   __syncwarp();
 
-  // Lane j owns bytes [b0, b1).
-  const int per_lane = (width + 31) / 32;
-  const int b0 = min(lane * per_lane, width);
-  const int b1 = min(b0 + per_lane, width);
-  const bool in0 = b0 > 0 && !is_delim(dm, row[b0 - 1]);
-
-  int count = 0;
-  bool prev_in = in0;
-  for (int p = b0; p < b1; ++p) {
-    const bool in = !is_delim(dm, row[p]);
-    count += in && !prev_in;
-    prev_in = in;
-  }
-  int incl = count;  // inclusive warp scan of the start counts
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  const int ntok = __shfl_sync(0xffffffffu, incl, 31);
-
-  int tid = incl - count;
-  prev_in = in0;
-  for (int p = b0; p < b1; ++p) {
-    const bool in = !is_delim(dm, row[p]);
-    if (in && !prev_in) {
-      if (tid < emits) {
-        int len = 0;
-        while (len < key_width && p + len < width && !is_delim(dm, row[p + len])) ++len;
-        slot_start[tid] = p;
-        slot_len[tid] = len;
-      }
-      ++tid;
-    }
-    prev_in = in;
-  }
-  __syncwarp();
-
+  const int ntok = locust_tok::warp_tokenize_row(row, width, emits, key_width, dm,
+                                                 slot_start, slot_len);
   const int live = min(ntok, emits);
   const int words = key_width / 4;
   uint32_t* out = reinterpret_cast<uint32_t*>(keys + line * emits * key_width);
   for (int w = lane; w < emits * words; w += 32) {
     const int e = w / words;
     const int kb = (w - e * words) * 4;
-    uint32_t word = 0;
-    if (e < live) {
-      const int st = slot_start[e];
-      const int len = slot_len[e];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (kb + i < len) word |= (uint32_t)row[st + kb + i] << (8 * i);
-    }
-    out[w] = word;
+    out[w] = e < live ? locust_tok::token_word(row, slot_start[e], slot_len[e], kb) : 0u;
   }
   for (int e = lane; e < emits; e += 32) valid[line * emits + e] = e < live;
   if (lane == 0) overflow[line] = max(ntok - emits, 0);

@@ -3,8 +3,12 @@
 Port of the single-device engine of ``locust_tpu/engine.py``.  The corpus
 streams through fixed-shape blocks of ``cfg.block_lines`` lines; each
 block's emits are concatenated with the bounded running table
-(``cfg.resolved_table_size`` rows) and ONE sort + segment reduce both
-groups the new emits and merges them into the table.  ``run`` /
+(``cfg.resolved_table_size`` rows) and folded into it: in the sort modes
+ONE sort + segment reduce both groups the new emits and merges them into
+the table; in the hasht family the hash-table fold does it without a
+sort (ops/hash_table.py).  Under ``sort_mode="fused"`` the fused kernel
+(ops/kernels/fused_fold.py) first pre-aggregates the block, and the
+hasht fold settles its table and residual rows.  ``run`` /
 ``run_fused`` fold block after block; ``timed_run`` runs Map, Process,
 Reduce and the table merge as separate, synchronised stages for the
 reference's per-stage report (main.cu:405-468).  Python loops stand in
@@ -29,6 +33,10 @@ from locust_tpu_torch.config import DEFAULT_CONFIG, EngineConfig
 from locust_tpu_torch.core import bytes_ops
 from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.ops.hash_table import fold_into
+from locust_tpu_torch.ops.kernels.fused_fold import (
+    fused_block_preagg,
+    fused_engine_eligible,
+)
 from locust_tpu_torch.ops.map_stage import wordcount_map
 from locust_tpu_torch.ops.process_stage import require_mode, sort_and_compact
 from locust_tpu_torch.ops.reduce_stage import (
@@ -122,6 +130,14 @@ class RunResult:
     truncated: bool           # True if distinct keys exceeded table capacity
     times: StageTimes
     combine: str = "sum"
+    # "batch" when sort_mode="fused" engaged the fused kernel (set as the
+    # JAX engine sets it, timed_run included), else None.
+    fused_kernel: str | None = None
+    # True when sort_mode="fused" was asked for but the kernel is not
+    # eligible (fused_engine_eligible): the fold ran exactly like hasht.
+    fused_demoted: bool = False
+    # Blocks whose kernel flag sent them through the stock re-fold.
+    fused_refolds: int = 0
 
     def to_host_pairs(self, sort: bool = True) -> list[tuple[bytes, int]]:
         """Decode the table, re-merge duplicate rows, sort by key."""
@@ -145,14 +161,42 @@ class MapReduceEngine:
         # "count" lowers to emit-1 + sum so the table merge is associative.
         self.map_fn, self._combine = normalize_combine(map_fn, combine)
         self._table_size = cfg.resolved_table_size
+        # sort_mode="fused": the fused kernel replaces the map and the
+        # block's first aggregation when its static checks pass (on the
+        # RAW map_fn: the count wrapper emits the 1s the kernel counts);
+        # otherwise the fold is exactly "hasht", logged once here.
+        self._fused_kernel_on = False
+        self._fused_demoted = False
+        self._refolds = 0
+        if cfg.sort_mode == "fused":
+            ok, why = fused_engine_eligible(cfg, map_fn, combine)
+            self._fused_kernel_on, self._fused_demoted = ok, not ok
+            if not ok:
+                logger.info("sort_mode='fused': kernel not engaged — %s", why)
 
     # ---------------------------------------------------------------- stages
 
     def fold_block(self, acc: KVBatch, lines: torch.Tensor):
         """Map one block and merge its emits into the running table.
         Returns ``(table, overflow, distinct)``; ``distinct`` is counted
-        before the capacity slice, so a truncation is observable."""
-        kv, overflow = self.map_fn(lines, self.cfg)
+        before the capacity slice, so a truncation is observable.
+
+        With the fused kernel on, the kernel pre-aggregates the block and
+        the hasht fold settles ``concat(table, residual)`` into ``acc``:
+        the same keys and totals as the block's emits, so the same table
+        as "hasht" (fused_fold.py's contract).  When the kernel's flag is
+        set, the block is re-folded through the stock path instead, as
+        the JAX engine's ``lax.cond`` does; reading the flag is one host
+        sync per block.  The overflow is the kernel's either way."""
+        if self._fused_kernel_on:
+            ktab, kresid, overflow, flag = fused_block_preagg(lines, self.cfg)
+            if bool(flag):
+                self._refolds += 1
+                kv, _ = self.map_fn(lines, self.cfg)
+            else:
+                kv = KVBatch.concat(ktab, kresid)
+        else:
+            kv, overflow = self.map_fn(lines, self.cfg)
         merged, distinct = fold_into(
             acc, kv, self._table_size, self._combine, self.cfg.sort_mode
         )
@@ -188,6 +232,7 @@ class MapReduceEngine:
         """Fold every block into ``acc`` (an empty table when None); the
         counters stay on the device until the caller reads them."""
         acc = self.empty_table() if acc is None else acc
+        self._refolds = 0
         overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         max_distinct = torch.zeros((), dtype=torch.int32, device=self.device)
         for blk in blocks:
@@ -204,7 +249,8 @@ class MapReduceEngine:
         acc, num, overflow = self._fold_all(self._blocks(rows), acc)
         self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3
-        return self._finish(acc, num, int(overflow), StageTimes(0, total_ms, 0))
+        return self._finish(acc, num, int(overflow), StageTimes(0, total_ms, 0),
+                            self._refolds)
 
     def prepare_blocks(self, rows: np.ndarray) -> torch.Tensor:
         """Pad + reshape host rows into device-resident
@@ -222,7 +268,8 @@ class MapReduceEngine:
         acc, num, overflow = self._fold_all(blocks, acc)
         num = int(num)  # host sync: every fold is done
         total_ms = (time.perf_counter() - t0) * 1e3
-        return self._finish(acc, num, int(overflow), StageTimes(0, total_ms, 0))
+        return self._finish(acc, num, int(overflow), StageTimes(0, total_ms, 0),
+                            self._refolds)
 
     def run_fused(self, rows: np.ndarray) -> RunResult:
         """Whole-corpus run over blocks staged to the device in one copy."""
@@ -231,7 +278,9 @@ class MapReduceEngine:
     def timed_run(self, rows: np.ndarray) -> RunResult:
         """Per-stage timing parity with the reference's report
         (main.cu:405-468): every stage ends in a device sync.  The
-        cross-block table merge is a sort and counts to Process."""
+        cross-block table merge is a sort and counts to Process.  As in
+        the JAX engine, the stages are the split map / sort / reduce for
+        every mode, the hasht family grouping by "hashp1"."""
         cfg, mode = self.cfg, self.cfg.sort_mode
         acc = self.empty_table()
         overflow = 0
@@ -265,7 +314,7 @@ class MapReduceEngine:
     def run_lines(self, lines: Sequence[bytes]) -> RunResult:
         return self.run(self.rows_from_lines(lines))
 
-    def _finish(self, acc, num_segments, overflow, times) -> RunResult:
+    def _finish(self, acc, num_segments, overflow, times, refolds: int = 0) -> RunResult:
         num = int(num_segments)
         truncated = num > acc.size
         if truncated:
@@ -289,4 +338,7 @@ class MapReduceEngine:
             truncated=truncated,
             times=times,
             combine=self.combine,
+            fused_kernel="batch" if self._fused_kernel_on else None,
+            fused_demoted=self._fused_demoted,
+            fused_refolds=refolds,
         )

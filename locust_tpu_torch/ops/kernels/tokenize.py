@@ -51,7 +51,7 @@ def tokenize_reference(lines: torch.Tensor, emits: int, key_width: int):
     return keys, valid, overflow
 
 
-def _delim_words() -> list[int]:
+def delim_words() -> list[int]:
     """The delimiter set as four 64-bit masks (bit b: byte b ends a token)."""
     words = [0, 0, 0, 0]
     for b in FULL_DELIMITERS:
@@ -103,7 +103,7 @@ def tokenize_block_kernel(lines: torch.Tensor, emits: int, key_width: int):
         rc = lib.locust_tokenize(
             lines.data_ptr(), num_lines, width, emits, key_width,
             keys.data_ptr(), valid.data_ptr(), per_line.data_ptr(),
-            *_delim_words(), torch.cuda.current_stream(dev).cuda_stream,
+            *delim_words(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"tokenizer kernel launch failed: cudaError {rc}")

@@ -8,6 +8,11 @@ Port of ``locust_tpu/ops/process_stage.py`` for the modes of this slice:
   ``torch.sort``, row gathered into place — the JAX mode's ``lax.sort``
   is stable, so this is bit-identical to it.
 
+The hasht family (config.HASHT_FAMILY) is a fold-level strategy
+(ops/hash_table.aggregate_exact); the consumers of this grouping
+interface (``timed_run``'s split stages, the residual sorts of the
+hasht ladder) get "hashp1" for it, as in the JAX package.
+
 Both sort ``_folded_key``: 31 hash bits, with the invalid rows at
 0xFFFFFFFF, so ascending unsigned order is "valid rows first, equal keys
 adjacent".  Distinct keys that share a folded key may interleave; the
@@ -25,18 +30,13 @@ from locust_tpu_torch.core import packing
 from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
 
-PORTED_SORT_MODES = ("bitonic", "hashp1")
+PORTED_SORT_MODES = ("bitonic", "hashp1", *HASHT_FAMILY)
 
 
 def require_mode(mode: str) -> None:
     """Raise unless ``mode`` runs in this slice of the port."""
     if mode in PORTED_SORT_MODES:
         return
-    if mode in HASHT_FAMILY:
-        raise NotImplementedError(
-            f"sort_mode {mode!r}: the hash-table fold is not ported yet "
-            "(ROADMAP.md queue 1, slice 2)"
-        )
     if mode in SORT_MODES:
         raise NotImplementedError(
             f"sort_mode {mode!r} is not ported yet (ROADMAP.md queue 1, "
@@ -56,7 +56,7 @@ def sort_and_compact(batch: KVBatch, mode: str = "bitonic") -> KVBatch:
         rows = torch.cat([lanes, values[:, None]], dim=1)
         key, rows = bitonic_sort_rows(folded, rows)
         lanes, values = rows[:, :n_lanes], rows[:, n_lanes]
-    else:  # hashp1
+    else:  # hashp1, and the hasht family's grouping
         order = torch.sort(packing.to_u32(folded), stable=True).indices
         key, lanes, values = folded[order], lanes[order], values[order]
     # int32 view of the folded key: valid rows are < 0x80000000, i.e. >= 0.

@@ -30,6 +30,9 @@ def jax_outputs():
     ["--no-timing"],
     ["--sort-mode", "hashp1"],
     ["--block-lines", "256"],
+    ["--sort-mode", "fused", "--no-timing"],
+    ["--sort-mode", "hasht"],
+    ["--sort-mode", "hasht-mxu"],
 ])
 def test_cli_stdout_byte_identical_to_jax(slice_args, port_args, capfdbinary, jax_outputs):
     key = tuple(slice_args)
@@ -42,6 +45,26 @@ def test_cli_stdout_byte_identical_to_jax(slice_args, port_args, capfdbinary, ja
     assert got.out.count(b"\n") > 100
     assert b"lines loaded" in got.err
     assert (b"Process stage" in got.err) == ("--no-timing" not in port_args)
+
+
+def test_cli_hasht_runs_through_the_fused_kernel(capfdbinary, monkeypatch):
+    """``--sort-mode hasht`` takes the JAX compiler's wordcount rewrite to
+    "fused": the fold goes through the fused kernel's wrapper per block."""
+    from locust_tpu_torch.ops.kernels import fused_fold
+
+    calls = []
+    real = fused_fold.fused_preagg_reference
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fused_fold, "fused_preagg_reference", counting)
+    out = _stdout(capfdbinary, tcli.main,
+                  [CORPUS, "--sort-mode", "hasht", "--no-timing", "--block-lines", "256",
+                   "--backend", "cpu"])
+    assert len(calls) == 4  # 820 lines in blocks of 256
+    assert out.out.count(b"\n") > 100
 
 
 def test_cli_limit_and_errors(capfdbinary, tmp_path):

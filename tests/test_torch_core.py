@@ -66,6 +66,10 @@ def test_config_constants_equal_jax():
     assert tconfig.FULL_DELIMITERS == jconfig.FULL_DELIMITERS
     assert tconfig.SORT_MODES == jconfig.SORT_MODES
     assert tconfig.HASHT_FAMILY == jconfig.HASHT_FAMILY
+    # The knobs that decide results shared with the JAX package.
+    for name in ("HASHT_PROBES", "FUSED_TILE_LINES", "FUSED_TABLE_SLOTS",
+                 "FUSED_RESIDUAL_ROWS"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
     with pytest.raises(ValueError):
         tconfig.EngineConfig(key_width=6)
     with pytest.raises(ValueError):
@@ -217,9 +221,8 @@ def test_unported_sort_modes_raise_not_implemented():
     for mode in ("hash", "lex", "radix"):
         with pytest.raises(NotImplementedError, match="slice 3"):
             MapReduceEngine(tconfig.EngineConfig(sort_mode=mode), device="cpu")
-    for mode in tconfig.HASHT_FAMILY:
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            MapReduceEngine(tconfig.EngineConfig(sort_mode=mode), device="cpu")
+    for mode in tconfig.HASHT_FAMILY:  # ported in slice 2
+        assert MapReduceEngine(tconfig.EngineConfig(sort_mode=mode), device="cpu")
 
 
 def test_kernel_wrappers_refuse_devices_without_a_kernel():
