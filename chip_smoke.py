@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``locust_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
-shapes of the main path, then drives the main path -- single-device
+shapes of the main path (the bitonic sort bit for bit against Batcher's
+network run as torch ops, keys and payload rows in order), then drives the main path -- single-device
 WordCount (Map -> Process -> Reduce) at the CLI's default widths, each
 run over >= 32 MiB made by replicating ``data/sample_corpus.txt`` (the
 CLI reads it from a file in a temporary directory) -- and checks each
@@ -168,9 +169,12 @@ def main() -> int:
         fused_block_preagg,
         fused_preagg_reference,
     )
+    from locust_tpu_torch.config import BITONIC_TILE_BITS
     from locust_tpu_torch.ops.kernels.sort import (
+        bitonic_network_reference,
         bitonic_reference,
         bitonic_sort_rows,
+        plan_steps,
         padded_size,
     )
     from locust_tpu_torch.ops.kernels.tokenize import (
@@ -232,30 +236,50 @@ def main() -> int:
             err_a = max(err_a, err)
             log(f"  {name} [{BL},{W}] E={E} K={K}: exact, {int(valid.sum())} tokens, overflow {int(ovf)}")
 
-    with phase("kernel B (bitonic sort) against its plain version"):
+    with phase("kernel B (bitonic sort) against the network reference, bit for bit"):
+        # Keys and payload rows in order must equal Batcher's network run
+        # as torch ops (the TPU kernel's permutation); where no real key
+        # is 0xFFFFFFFF the rows must also be the input rows, moved.
+        tile = 1 << BITONIC_TILE_BITS
+        cases = [(n, kind, 9) for n in (1, 1000, 1024, 81920, 131072, 147456, 262144, 1 << 20)
+                 for kind in ("dups", "equal")]
+        cases += [(5000, "sentinel", 9), (147456, "sentinel", 9), (147456, "dups", 0),
+                  (tile + 1, "dups", 9), (tile + 1, "equal", 0)]
         err_b = 0
-        for n in (1, 1000, 1024, 81920, 131072, 147456, 262144, 1 << 20):
-            for kind in ("dups", "equal"):
-                g = torch.Generator(device=dev).manual_seed(n)
-                if kind == "equal":
-                    key = torch.full((n,), 0x12345678, dtype=torch.int32, device=dev)
-                else:  # duplicate-heavy, the high bit set on half the keys
-                    pool = torch.randint(-(2**31), 2**31 - 1, (max(n // 8, 1),), generator=g,
-                                         device=dev, dtype=torch.int64).to(torch.int32)
-                    key = pool[torch.randint(0, pool.numel(), (n,), generator=g, device=dev)]
-                pay = torch.randint(-(2**31), 2**31 - 1, (n, 9), generator=g, device=dev,
-                                    dtype=torch.int64).to(torch.int32)
+        for n, kind, width in cases:
+            g = torch.Generator(device=dev).manual_seed(n)
+            if kind == "equal":
+                key = torch.full((n,), 0x12345678, dtype=torch.int32, device=dev)
+            else:  # duplicate-heavy, the high bit set on half the keys
+                pool = torch.randint(-(2**31), 2**31 - 1, (max(n // 8, 1),), generator=g,
+                                     device=dev, dtype=torch.int64).to(torch.int32)
+                if kind == "sentinel":  # real keys equal to the pad's 0xFFFFFFFF
+                    pool[::3] = -1
+                key = pool[torch.randint(0, pool.numel(), (n,), generator=g, device=dev)]
+            pay = torch.randint(-(2**31), 2**31 - 1, (n, width), generator=g, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+            if width:
                 pay[:, 0] = torch.arange(n, device=dev, dtype=torch.int32)
-                sk, sp = bitonic_sort_rows(key, pay)
-                rk, _ = bitonic_reference(key, pay)
-                torch.cuda.synchronize()
-                err = int((sk.to(torch.int64) - rk.to(torch.int64)).abs().max())
+            sk, sp = bitonic_sort_rows(key, pay)
+            rk, rp = bitonic_network_reference(key, pay)
+            torch.cuda.synchronize()
+            err = max(int((sk.to(torch.int64) - rk.to(torch.int64)).abs().max()),
+                      int((sp.to(torch.int64) - rp.to(torch.int64)).abs().max()) if width else 0)
+            if err or not (torch.equal(sk, rk) and torch.equal(sp, rp)):
+                raise AssertionError(f"bitonic kernel differs from the network reference at "
+                                     f"n={n} ({kind}, width {width}): max abs err {err}")
+            if kind != "sentinel" and width:
                 perm = sp[:, 0].long()
-                if err or not torch.equal(torch.sort(perm).values, torch.arange(n, device=dev)) \
-                        or not torch.equal(sp, pay[perm]) or not torch.equal(key[perm], sk):
-                    raise AssertionError(f"bitonic kernel wrong at n={n} ({kind}): key err {err}")
-                err_b = max(err_b, err)
-            log(f"  n={n} (pad {padded_size(n)}), 9 payloads, dups + all-equal: exact keys, rows consistent")
+                if not (torch.equal(torch.sort(perm).values, torch.arange(n, device=dev))
+                        and torch.equal(sp, pay[perm]) and torch.equal(key[perm], sk)
+                        and torch.equal(sk, bitonic_reference(key, pay)[0])):
+                    raise AssertionError(f"bitonic kernel rows inconsistent at n={n} ({kind})")
+            pads = int((sp == 0).all(dim=1).sum()) if kind == "sentinel" else 0
+            err_b = max(err_b, err)
+            log(f"  n={n} (pad {padded_size(n)}, {plan_steps(n)} plan steps in "
+                f"{bitonic_sort_rows.cuda_launches} CUDA launches), {kind}, "
+                f"{width} payloads: keys and rows equal the network reference"
+                + (f" ({pads} pad rows among the first n)" if kind == "sentinel" else ""))
 
     cfg_f = EngineConfig(sort_mode="fused", use_pallas=True)
     with phase("kernel C (fused pre-aggregation) against its plain version"):
@@ -508,25 +532,73 @@ def main() -> int:
                 return bitonic_sort_rows(key, pay)
 
             def sort_plain():
+                return bitonic_network_reference(key, pay)
+
+            def sort_stable():
                 return bitonic_reference(key, pay)
 
             def sort_library():
                 order = torch.sort(key.to(torch.int64) & 0xFFFFFFFF).indices
                 return key[order], pay[order]
 
-            times = [(cuda_ms(torch, f), device_ms(torch, f))
-                     for f in (sort_kernel, sort_plain, sort_library)]
+            # The kernel and torch.sort + gather in turns (library, kernel,
+            # kernel, library), each the mean of its two readings.
+            turns = {f: [] for f in (sort_kernel, sort_library)}
+            for f in (sort_library, sort_kernel, sort_kernel, sort_library):
+                turns[f].append((cuda_ms(torch, f), device_ms(torch, f)))
+            mean = {f: (float(np.mean([w for w, _ in r])),
+                        None if None in [d for _, d in r] else float(np.mean([d for _, d in r])))
+                    for f, r in turns.items()}
+            times = [mean[sort_kernel], (cuda_ms(torch, sort_plain), device_ms(torch, sort_plain)),
+                     mean[sort_library]]
+            s_ms, s_dev = cuda_ms(torch, sort_stable), device_ms(torch, sort_stable)
+            # CUDA launches of one kernel sort, as the profiler saw them:
+            # five calls after a first call and a marker op, counted from
+            # the marker on (the profiler may miss the start of a recording).
+            def five_sorts():
+                sort_kernel()
+                torch.ones(1, device=dev).add_(1)
+                torch.cuda.synchronize()
+                for _ in range(5):
+                    sort_kernel()
+
+            ev = device_events(torch, five_sorts)
+            mark = max((e.time_range.start for e in ev if "bitonic" not in e.name),
+                       default=float("inf"))
+            counted_ev = sorted((e for e in ev if "bitonic" in e.name and e.time_range.start > mark),
+                                key=lambda e: e.time_range.start)
+            seen = len(counted_ev) / 5
+            per = bitonic_sort_rows.cuda_launches  # as the wrapper reports them
+            if per > 1 and len(counted_ev) == 5 * per:  # each launch's mean device time
+                launch_us = [float(np.mean([counted_ev[c * per + j].time_range.elapsed_us()
+                                            for c in range(5)])) for j in range(per)]
+                gap_us = float(np.mean([b.time_range.start - a.time_range.end
+                                        for c in range(5) for a, b in zip(
+                                            counted_ev[c * per:(c + 1) * per - 1],
+                                            counted_ev[c * per + 1:(c + 1) * per])]))
+                log(f"  bitonic n={n}: device us per launch, in plan order (first tile, then "
+                    f"cross and tile per stage; the last gathers the rows): "
+                    f"{[round(u, 2) for u in launch_us]}; mean gap between launches "
+                    f"{gap_us:.2f} us")
+            if per < 1 or (seen and seen != per):
+                raise AssertionError(f"bitonic n={n}: the profiler saw {seen} kernel launches "
+                                     f"per sort, the wrapper reports {per}")
             kb = padded_size(n).bit_length() - 1
             nbytes = 2 * n * 4 * (1 + pay.shape[1])
             b, by = bound_ms(nbytes, (padded_size(n) // 2) * kb * (kb + 1) // 2)
-            b_rows[n] = (times, b, by)
+            b_rows[n] = (times, b, by, per)
             (k_ms, k_dev), (p_ms, p_dev), (l_ms, l_dev) = times
-            log(f"  bitonic n={n} (pad {padded_size(n)}) x {pay.shape[1]} payloads: "
-                f"kernel {k_ms:.4f} ms (device {_ms(k_dev)}), plain {p_ms:.4f} ms "
-                f"(device {_ms(p_dev)}), torch.sort+gather {l_ms:.4f} ms (device {_ms(l_dev)}), "
-                f"bound {b:.4f} ms ({by})")
+            log(f"  bitonic n={n} (pad {padded_size(n)}) x {pay.shape[1]} payloads, "
+                f"{plan_steps(n)} plan steps in {per} CUDA launches per sort (profiler saw "
+                f"{seen or 'none'} per sort over 5): "
+                f"kernel {k_ms:.4f} ms (device {_ms(k_dev)}; readings {turns[sort_kernel]}), "
+                f"torch.sort+gather {l_ms:.4f} ms (device {_ms(l_dev)}; readings "
+                f"{turns[sort_library]}), network reference {p_ms:.4f} ms (device {_ms(p_dev)}), "
+                f"stable plain {s_ms:.4f} ms (device {_ms(s_dev)}), bound {b:.6f} ms ({by}), "
+                f"kernel device time {_ms(k_dev)} = "
+                f"{'not measured' if k_dev is None else f'{b / k_dev:.4f} of the bound'}")
         fold_n = cfg.resolved_table_size + cfg.emits_per_block
-        ((k_ms, k_dev), (p_ms, _), (l_ms, _)), b, by = b_rows[fold_n]
+        ((k_ms, k_dev), (p_ms, _), (l_ms, _)), b, by, b_launches = b_rows[fold_n]
 
         def fused_kernel():
             return fused_block_preagg(x, cfg_f)
@@ -563,8 +635,10 @@ def main() -> int:
             for k in kern:
                 by_name[k.name[:70]] += k.time_range.elapsed_us()
             busy = sum(by_name.values())
+            sort_us = sum(us for name, us in by_name.items() if "bitonic" in name)
             log(f"  {len(kern)} device ops, busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms "
-                f"device window: busy share {busy / span:.3f}")
+                f"device window: busy share {busy / span:.3f}; the bitonic kernel "
+                f"{sort_us / 1e3:.3f} ms = {sort_us / busy:.1%} of busy")
             for name, us in by_name.most_common(12):
                 log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
 
@@ -578,15 +652,21 @@ def main() -> int:
          "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by,
          "library_ms": None, "device_ms": a_dev, "shape": f"[{BL},{W}] E={E} K={K}"},
-        {"name": "bitonic_sort", "route": "cuda", "status": "ported",
+        {"name": "bitonic_sort", "route": "cuda", "status": "ported, PR 1; redesigned, PR 3",
          "source": "locust_tpu_torch/csrc/bitonic.cu",
          "replaces": "locust_tpu/ops/pallas/sort.py:87",
          "launches": by_path["cli"]["bitonic_sort"],
          "launches_by_path": {p: c["bitonic_sort"] for p, c in by_path.items()},
+         "cuda_launches_per_sort": b_launches, "plan_steps": plan_steps(fold_n),
          "max_abs_err": err_b,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
          "library_ms": l_ms, "device_ms": k_dev,
-         "shape": f"n={fold_n} x {cfg.key_lanes + 1} payloads"},
+         "shape": f"n={fold_n} x {cfg.key_lanes + 1} payloads",
+         "by_shape": {str(n): {"cuda_launches_per_sort": nl, "plan_steps": plan_steps(n),
+                               "ms": t[0][0],
+                               "device_ms": t[0][1], "plain_ms": t[1][0], "library_ms": t[2][0],
+                               "library_device_ms": t[2][1], "bound_ms": bb}
+                      for n, (t, bb, _, nl) in b_rows.items()}},
         {"name": "fused_fold", "route": "cuda", "status": "ported",
          "source": "locust_tpu_torch/csrc/fused_fold.cu",
          "replaces": "locust_tpu/ops/pallas/fused_fold.py:155",

@@ -13,6 +13,7 @@ environment variables, with the same defaults and validation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 # Tokenization delimiter set, byte for byte the reference's strtok
@@ -76,11 +77,19 @@ if FUSED_RESIDUAL_ROWS < 8 or FUSED_RESIDUAL_ROWS & (FUSED_RESIDUAL_ROWS - 1):
 TOKEN_BOUNDARY_EXTRA: bytes = b"\x00\n\r"
 FULL_DELIMITERS: bytes = DELIMITERS + TOKEN_BOUNDARY_EXTRA
 
-# Bitonic sort tile of the CUDA kernel (ops/kernels/sort.py): 2^12
-# elements of (uint32 key, uint32 row index) = 32 KB of shared memory per
-# block, under the 48 KB a block gets without opting in.  Every substage
-# whose compare distance is below the tile runs inside one block.
-BITONIC_TILE_BITS: int = 12
+# Bitonic sort tile of the CUDA kernel (ops/kernels/sort.py): 2^11
+# elements of one 64-bit (key, row index) word = 16 KB of shared memory
+# and 512 threads per block, so a sort of 2^18 elements keeps 128 blocks
+# in flight on the H100's 132 SMs (2^12 tiles would leave half of them
+# idle).  Every substage whose compare distance is below the tile runs
+# inside one block.
+BITONIC_TILE_BITS: int = 11
+# Largest block of the kernel: 2^12 words (32 KB of shared memory, 1,024
+# threads of 4 words each).
+BITONIC_MAX_BLOCK_BITS: int = 12
+# Most cross-tile substages one launch runs; the block keeps at least
+# 2^3 consecutive words (64 B) beside them.
+BITONIC_MAX_CROSS_BITS: int = 9
 
 
 def _pack_local_stages(specs, max_fused):
@@ -121,6 +130,39 @@ def bitonic_schedule(kbits: int, m: int, max_fused: int = 0):
         for ch in _pack_local_stages([(s, m, 1)], mf):
             sched.append(("local", ch))
     return sched
+
+
+@functools.lru_cache(maxsize=None)
+def bitonic_launch_plan(kbits: int, m: int):
+    """Launch plan of the CUDA bitonic kernel for ``n = 2^kbits`` elements
+    and a tile of ``2^m``: a tuple of launches ``(block_bits, low_bits,
+    cross_at, stages)``, in execution order.
+
+    A launch's block holds ``2^block_bits`` elements: its local index
+    bits below ``low_bits`` are the global index bits ``0..low_bits-1``,
+    the others are the global bits from ``cross_at`` up; the block index
+    fills the remaining global bits.  ``stages`` are ``(s, t_hi, t_lo)``
+    triples run back to back; substage ``t`` compares global bit ``t-1``,
+    which lies among the block's bits.  A tile launch has
+    ``block_bits == low_bits == cross_at == m``; a cross launch runs up
+    to ``BITONIC_MAX_CROSS_BITS`` substages of distance ``>= 2^m`` on
+    blocks of coalesced runs of ``2^low_bits`` elements.  With
+    ``kbits - m <= BITONIC_MAX_CROSS_BITS`` that is ``1 + 2*(kbits - m)``
+    launches: the first tile launch, then per stage above the tile one
+    cross and one tile launch.  The kernel takes blocks of 2^8 to
+    ``2^BITONIC_MAX_BLOCK_BITS`` words."""
+    if not 8 <= m <= min(kbits, BITONIC_MAX_BLOCK_BITS):
+        raise ValueError(f"tile bits {m} outside 8..min({kbits}, {BITONIC_MAX_BLOCK_BITS})")
+    plan = [(m, m, m, tuple((s, s, 1) for s in range(1, m + 1)))]
+    for s in range(m + 1, kbits + 1):
+        hi = s - 1  # global bits s-1 .. m, top down
+        while hi >= m:
+            c = min(BITONIC_MAX_CROSS_BITS, hi - m + 1)
+            block = min(BITONIC_MAX_BLOCK_BITS, max(m, c + 4))
+            plan.append((block, block - c, hi - c + 1, ((s, hi + 1, hi - c + 2),)))
+            hi -= c
+        plan.append((m, m, m, ((s, m, 1),)))
+    return tuple(plan)
 
 
 @dataclasses.dataclass(frozen=True)
