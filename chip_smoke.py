@@ -5,8 +5,13 @@
 
 Builds the port's CUDA kernels from ``locust_tpu_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
-shapes of the main path (the bitonic sort bit for bit against Batcher's
-network run as torch ops, keys and payload rows in order), then drives the main path -- single-device
+shapes of the main path and others (the tokenizer exactly at widths 1 to
+2,048, aligned or not, E 1 to 256 and K 4 to 64, and on rows with no
+delimiter, only delimiters, tokens across 16-byte boundaries and bytes >=
+0x80; the bitonic sort bit for bit against Batcher's network run as torch
+ops, keys and payload rows in order; the fused pre-aggregation's
+re-merged union, overflow and flag, from one tile to 2,048 tiles in one
+call, and every row it writes), then drives the main path -- single-device
 WordCount (Map -> Process -> Reduce) at the CLI's default widths, each
 run over >= 32 MiB made by replicating ``data/sample_corpus.txt`` (the
 CLI reads it from a file in a temporary directory) -- and checks each
@@ -22,6 +27,11 @@ launch counters are set to 0 just before each path and read just after
 it; each path must launch each kernel exactly as often as its blocks
 demand.  The ``kernels`` line reports each kernel's count on its CLI path
 as ``launches`` and every path's in ``launches_by_path``.
+
+The times phase reports, per kernel, the wall time of a call, its device
+ops and their device time as the profiler records them, and the kernel's
+own device time; a call of the tokenizer or of the fused pre-aggregation
+must be one device op.
 
 Output: one line per check, the card's name and power limit, one JSON
 line with each kernel's numbers, and last a JSON line
@@ -114,6 +124,40 @@ def device_ms(torch, fn, reps: int = 20) -> float | None:
     torch.cuda.synchronize()
     ops = device_events(torch, lambda: [fn() for _ in range(reps)])
     return sum(e.time_range.elapsed_us() for e in ops) / reps / 1e3 if ops else None
+
+
+def call_profile(torch, fn, kernel: str, reps: int = 20) -> tuple[float, float, float]:
+    """Per call of ``fn``, from ``torch.profiler``: its device ops, their
+    summed device time (ms) and the device time (ms) of the events whose
+    name holds ``kernel``, the kernel's own.  The calls are counted from a
+    host-to-device copy on: the profiler misses the first few device ops
+    of a recording, so 50 calls before the copy take them.  Raises when
+    the profiler records no device time."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        torch.ones(1).to("cuda")  # the marker
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+
+    for _ in range(3):  # a recording may come back empty: try again
+        ev = device_events(torch, run)
+        marks = [e.time_range.start for e in ev if "Memcpy" in e.name]
+        if marks and any(kernel in e.name for e in ev):
+            break
+        log(f"  {kernel}: the profiler recorded {len(ev)} device ops "
+            f"({sorted({e.name[:40] for e in ev})}) and no marker; again")
+    else:
+        raise AssertionError(f"{kernel}: the profiler recorded no device time")
+    ops = [e for e in ev if e.time_range.start > max(marks)]
+    total = sum(e.time_range.elapsed_us() for e in ops) / reps / 1e3
+    own = sum(e.time_range.elapsed_us() for e in ops if kernel in e.name) / reps / 1e3
+    return len(ops) / reps, total, own
 
 
 def _ms(v: float | None) -> str:
@@ -219,12 +263,29 @@ def main() -> int:
         fuzz = alphabet[rng.integers(0, len(alphabet), (BL, W))]
         fuzz[rng.random(BL) < 0.2, 40:100] = ord("w")  # tokens longer than K
         fuzz[rng.random(BL) < 0.1] = ord("x")          # one token filling the row
-        blocks = {"fuzz": fuzz, "corpus": rows[:BL], "corpus_tail": rows[-BL:]}
+        # Rows the bit masks must get right: no delimiter, delimiters only,
+        # tokens across 16-byte boundaries, bytes >= 0x80, a token up to
+        # the row end.
+        special = np.resize(np.frombuffer(b"o nmlkjihgfedcba", np.uint8), (BL, W))
+        special[0::5] = ord("x")
+        special[1::5] = ord(" ")
+        special[2::5] = np.resize(np.frombuffer(b"\xc3\xa9t\xe9 \x80\x81\xff.", np.uint8), W)
+        special[3::5, :W - 7] = ord(",")
+        # (name, block, E, K): the main path's shape, then other widths
+        # (below 16 and not multiples of 16: unaligned lines), E and K.
+        cases = [("fuzz", fuzz, E, K), ("corpus", rows[:BL], E, K),
+                 ("corpus_tail", rows[-BL:], E, K), ("special rows", special, E, K)]
+        for w in (1, 15, 33, 100, 129, 2048):
+            wide = alphabet[rng.integers(0, len(alphabet), (1024, w))]
+            wide[rng.random(1024) < 0.2, w // 3:w // 3 + 40] = ord("w")
+            cases.append((f"fuzz W={w}", wide, E, K))
+        cases += [("fuzz E=1", fuzz, 1, K), ("fuzz E=256", fuzz[:1024], 256, K),
+                  ("fuzz K=4", fuzz, E, 4), ("fuzz K=64", fuzz, E, 64)]
         err_a = 0
-        for name, blk in blocks.items():
+        for name, blk, e_, k_ in cases:
             x = torch.from_numpy(np.ascontiguousarray(blk)).to(dev)
-            keys, valid, ovf = tokenize_block_kernel(x, E, K)
-            rkeys, rvalid, rovf = tokenize_reference(x, E, K)
+            keys, valid, ovf = tokenize_block_kernel(x, e_, k_)
+            rkeys, rvalid, rovf = tokenize_reference(x, e_, k_)
             torch.cuda.synchronize()
             err = max(
                 int((keys.int() - rkeys.int()).abs().max()),
@@ -234,7 +295,8 @@ def main() -> int:
             if err:
                 raise AssertionError(f"tokenizer kernel differs from plain on {name}: max abs err {err}")
             err_a = max(err_a, err)
-            log(f"  {name} [{BL},{W}] E={E} K={K}: exact, {int(valid.sum())} tokens, overflow {int(ovf)}")
+            log(f"  {name} {list(blk.shape)} E={e_} K={k_}: exact, {int(valid.sum())} tokens, "
+                f"overflow {int(ovf)}")
 
     with phase("kernel B (bitonic sort) against the network reference, bit for bit"):
         # Keys and payload rows in order must equal Batcher's network run
@@ -314,6 +376,11 @@ def main() -> int:
                 sort_mode="fused", key_width=64, emits_per_line=40), {}, False),
             ("corpus, 128-line tiles, 1 probe", rows[:BL], cfg_f,
              {"tile_lines": 128, "probes": 1, "resid_rows": 1024}, False),
+            # 16 blocks' lines in one call: 2,048 tiles, more than the
+            # blocks that fit on the card at once, so each block takes
+            # several tiles; and a single tile.
+            ("corpus, 16 blocks (2,048 tiles)", rows[:16 * BL], cfg_f, {}, False),
+            ("corpus, one tile", rows[BL:BL + 32], cfg_f, {}, False),
         ]
         err_c = 0
         for name, blk, ccfg, kw, want_flag in cases:
@@ -323,6 +390,13 @@ def main() -> int:
             torch.cuda.synchronize()
             got = dict(finalize_host_pairs(KVBatch.concat(tab, res)))
             plain = dict(finalize_host_pairs(KVBatch.concat(rtab, rres)))
+            # The kernel writes every row: valid is count > 0, and a row
+            # that is not valid is zero.
+            for part in (tab, res):
+                if not (torch.equal(part.valid, part.values > 0)
+                        and not part.key_lanes[~part.valid].any()):
+                    raise AssertionError(f"fused kernel on {name}: a row's valid byte or "
+                                         "its zeros are wrong")
             err = max(abs(int(ovf) - int(rovf)), abs(int(flag) - int(rflag)))
             if not want_flag:
                 err = max([err] + [abs(got.get(k, 0) - plain.get(k, 0)) for k in got.keys() | plain.keys()])
@@ -517,11 +591,23 @@ def main() -> int:
         def tok_plain():
             return tokenize_reference(x, E, K)
 
-        a_ms, a_plain = cuda_ms(torch, tok_kernel), cuda_ms(torch, tok_plain)
-        a_dev, a_plain_dev = device_ms(torch, tok_kernel), device_ms(torch, tok_plain)
-        a_bound, a_by = bound_ms(BL * W + BL * E * K + BL * E + 4 * BL + 4, BL * W)
-        log(f"  tokenizer [{BL},{W}] E={E} K={K}: kernel {a_ms:.4f} ms (device {_ms(a_dev)}), "
-            f"plain {a_plain:.4f} ms (device {_ms(a_plain_dev)}), bound {a_bound:.4f} ms ({a_by})")
+        def fused_kernel():
+            return fused_block_preagg(x, cfg_f)
+
+        # Kernels A and C are host-bound: their wall times over 200 calls,
+        # which spread less between runs than 20 do.
+        a_ms, c_ms = cuda_ms(torch, tok_kernel, reps=200), cuda_ms(torch, fused_kernel, reps=200)
+        a_plain = cuda_ms(torch, tok_plain)
+        a_ops, a_dev, a_own = call_profile(torch, tok_kernel, "tokenize_kernel")
+        a_plain_dev = device_ms(torch, tok_plain)
+        # In: the block; out: keys, valid and the overflow total.
+        a_bound, a_by = bound_ms(BL * W + BL * E * K + BL * E + 4, BL * W)
+        log(f"  tokenizer [{BL},{W}] E={E} K={K}: kernel {a_ms:.4f} ms, {a_ops:g} device ops "
+            f"per call, device {a_dev:.4f} ms, the kernel's own {a_own:.4f} ms "
+            f"({a_bound / a_own:.4f} of the bound); plain {a_plain:.4f} ms (device "
+            f"{_ms(a_plain_dev)}), bound {a_bound:.6f} ms ({a_by})")
+        if a_ops != 1:
+            raise AssertionError(f"a tokenizer call is {a_ops:g} device ops, not 1")
 
         b_rows = {}
         for n in (cfg.resolved_table_size + cfg.emits_per_block, cfg.emits_per_block):
@@ -600,9 +686,6 @@ def main() -> int:
         fold_n = cfg.resolved_table_size + cfg.emits_per_block
         ((k_ms, k_dev), (p_ms, _), (l_ms, _)), b, by, b_launches = b_rows[fold_n]
 
-        def fused_kernel():
-            return fused_block_preagg(x, cfg_f)
-
         def fused_plain():
             return fused_preagg_reference(x, cfg_f)
 
@@ -612,16 +695,27 @@ def main() -> int:
             keys, valid, _ = tokenize_block_kernel(x, E, K)
             return torch.unique(pack_keys(keys)[valid], dim=0, return_counts=True)
 
-        c_times = [(cuda_ms(torch, f), device_ms(torch, f))
-                   for f in (fused_kernel, fused_plain, fused_library)]
-        (c_ms, c_dev), (c_plain, c_plain_dev), (c_lib, c_lib_dev) = c_times
+        c_ops, c_dev, c_own = call_profile(torch, fused_kernel, "fused_preagg_kernel")
+        (c_plain, c_plain_dev), (c_lib, c_lib_dev) = [
+            (cuda_ms(torch, f), device_ms(torch, f)) for f in (fused_plain, fused_library)]
         tab, res, _, _ = fused_kernel()
-        c_bytes = BL * W + (tab.size + res.size) * (K + 4) + 8
+        # In: the block; out: lanes, count and valid of every table and
+        # residual row, the overflow and the flag.
+        c_bytes = BL * W + (tab.size + res.size) * (K + 5) + 5
         c_bound, c_by = bound_ms(c_bytes, BL * W)
         log(f"  fused pre-aggregation [{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} "
-            f"residual rows: kernel {c_ms:.4f} ms (device {_ms(c_dev)}), plain {c_plain:.4f} ms "
-            f"(device {_ms(c_plain_dev)}), tokenizer + torch.unique {c_lib:.4f} ms "
-            f"(device {_ms(c_lib_dev)}), bound {c_bound:.6f} ms ({c_by}, {c_bytes} bytes)")
+            f"residual rows: kernel {c_ms:.4f} ms, {c_ops:g} device ops per call, device "
+            f"{c_dev:.4f} ms, the kernel's own {c_own:.4f} ms ({c_bound / c_own:.4f} of the "
+            f"bound); plain {c_plain:.4f} ms (device {_ms(c_plain_dev)}), tokenizer + "
+            f"torch.unique {c_lib:.4f} ms (device {_ms(c_lib_dev)}), bound {c_bound:.6f} ms "
+            f"({c_by}, {c_bytes} bytes)")
+        if c_ops != 1:
+            raise AssertionError(f"a fused pre-aggregation call is {c_ops:g} device ops, not 1")
+        fold_key = torch.randint(0, 2**31 - 1, (fold_n,), device=dev, dtype=torch.int32)
+        fold_pay = torch.randint(0, 2**31 - 1, (fold_n, cfg.key_lanes + 1), device=dev,
+                                 dtype=torch.int32)
+        b_ops, _, b_own = call_profile(torch, lambda: bitonic_sort_rows(fold_key, fold_pay),
+                                       "bitonic")
 
     sub = rows[: 8 * BL]
     for mode, e in (("bitonic", eng), ("fused", engines["fused"]), ("hasht", engines["hasht"])):
@@ -636,7 +730,8 @@ def main() -> int:
                 by_name[k.name[:70]] += k.time_range.elapsed_us()
             busy = sum(by_name.values())
             sort_us = sum(us for name, us in by_name.items() if "bitonic" in name)
-            log(f"  {len(kern)} device ops, busy {busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms "
+            log(f"  {len(kern)} device ops ({len(kern) / 8:g} per block), busy {busy / 1e3:.3f} "
+                f"ms of a {span / 1e3:.3f} ms "
                 f"device window: busy share {busy / span:.3f}; the bitonic kernel "
                 f"{sort_us / 1e3:.3f} ms = {sort_us / busy:.1%} of busy")
             for name, us in by_name.most_common(12):
@@ -644,15 +739,16 @@ def main() -> int:
 
     log(f"card: {smi}")
     report = {"kernels": [
-        {"name": "tokenize", "route": "cuda", "status": "ported",
+        {"name": "tokenize", "route": "cuda", "status": "ported, redesigned",
          "source": "locust_tpu_torch/csrc/tokenize.cu",
          "replaces": "locust_tpu/ops/pallas/tokenize.py:35",
          "launches": by_path["cli"]["tokenize"],  # the default CLI (bitonic)
          "launches_by_path": {p: c["tokenize"] for p, c in by_path.items()},
          "max_abs_err": err_a,
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by,
-         "library_ms": None, "device_ms": a_dev, "shape": f"[{BL},{W}] E={E} K={K}"},
-        {"name": "bitonic_sort", "route": "cuda", "status": "ported, PR 1; redesigned, PR 3",
+         "library_ms": None, "device_ms": a_dev, "kernel_device_ms": a_own,
+         "device_ops_per_call": a_ops, "shape": f"[{BL},{W}] E={E} K={K}"},
+        {"name": "bitonic_sort", "route": "cuda", "status": "ported, redesigned",
          "source": "locust_tpu_torch/csrc/bitonic.cu",
          "replaces": "locust_tpu/ops/pallas/sort.py:87",
          "launches": by_path["cli"]["bitonic_sort"],
@@ -660,21 +756,23 @@ def main() -> int:
          "cuda_launches_per_sort": b_launches, "plan_steps": plan_steps(fold_n),
          "max_abs_err": err_b,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
-         "library_ms": l_ms, "device_ms": k_dev,
+         "library_ms": l_ms, "device_ms": k_dev, "kernel_device_ms": b_own,
+         "device_ops_per_call": b_ops,
          "shape": f"n={fold_n} x {cfg.key_lanes + 1} payloads",
          "by_shape": {str(n): {"cuda_launches_per_sort": nl, "plan_steps": plan_steps(n),
                                "ms": t[0][0],
                                "device_ms": t[0][1], "plain_ms": t[1][0], "library_ms": t[2][0],
                                "library_device_ms": t[2][1], "bound_ms": bb}
                       for n, (t, bb, _, nl) in b_rows.items()}},
-        {"name": "fused_fold", "route": "cuda", "status": "ported",
+        {"name": "fused_fold", "route": "cuda", "status": "ported, redesigned",
          "source": "locust_tpu_torch/csrc/fused_fold.cu",
          "replaces": "locust_tpu/ops/pallas/fused_fold.py:155",
          "launches": by_path["cli_fused"]["fused_fold"],
          "launches_by_path": {p: c["fused_fold"] for p, c in by_path.items()},
          "max_abs_err": err_c,
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
-         "library_ms": c_lib, "device_ms": c_dev,
+         "library_ms": c_lib, "device_ms": c_dev, "kernel_device_ms": c_own,
+         "device_ops_per_call": c_ops,
          "shape": f"[{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} residual rows"},
     ]}
     print(json.dumps(report))

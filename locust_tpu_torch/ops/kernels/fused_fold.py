@@ -21,6 +21,7 @@ counts it in ``fused_block_preagg.launches``) and takes the plain version,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,7 +36,13 @@ from locust_tpu_torch.config import (
 from locust_tpu_torch.core import packing
 from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.ops.hash_table import hash_aggregate
-from locust_tpu_torch.ops.kernels.tokenize import delim_words, tokenize_reference
+from locust_tpu_torch.ops.kernels.tokenize import (
+    delim_words,
+    device_guard,
+    line_geometry,
+    stream_handle,
+    tokenize_reference,
+)
 from locust_tpu_torch.ops.map_stage import wordcount_map
 
 
@@ -156,17 +163,21 @@ def fused_preagg_reference(
     return table, resid, overflow, (per_tile > r_cap).any()
 
 
-def _lib() -> ctypes.CDLL:
+@functools.cache
+def _kernel() -> tuple:
+    """The C entry point and the kernel's (max width, max emits), loaded
+    and asked once."""
     lib = _build.load("fused_fold")
+    p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     fn = lib.locust_fused_preagg
-    if fn.argtypes is None:
-        p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-        fn.argtypes = [p, ll, i, i, i, i, i, i, i, p, u64, u64, u64, u64, p]
-        fn.restype = ctypes.c_int
-        for name in ("locust_fused_max_width", "locust_fused_max_emits"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
+    fn.argtypes = [p, ll, i, i, i, i, i, i, i, i, i, p, u64, u64, u64, u64, i, p]
+    fn.restype = ctypes.c_int
+    bounds = []
+    for name in ("locust_fused_max_width", "locust_fused_max_emits"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+        bounds.append(getattr(lib, name)())
+    return fn, *bounds
 
 
 def fused_block_preagg(
@@ -188,34 +199,37 @@ def fused_block_preagg(
         raise ValueError(f"fused pre-aggregation: no kernel for device {lines.device}")
     if lines.dtype != torch.uint8 or lines.dim() != 2 or not lines.is_contiguous():
         raise ValueError("fused pre-aggregation: lines must be a contiguous uint8 [L, W] tensor")
-    lib = _lib()
+    fn, max_width, max_emits = _kernel()
     num_lines, width = lines.shape
     emits, n_lanes = cfg.emits_per_line, cfg.key_lanes
-    if width > lib.locust_fused_max_width() or emits > lib.locust_fused_max_emits():
+    if width > max_width or emits > max_emits:
         raise ValueError(
             f"fused pre-aggregation: width {width} or emits {emits} above the "
-            f"kernel's bounds ({lib.locust_fused_max_width()}, "
-            f"{lib.locust_fused_max_emits()})"
+            f"kernel's bounds ({max_width}, {max_emits})"
         )
     n_res = num_lines // tile * r_cap
     dev = lines.device
-    # One buffer, zeroed by the C entry: table lanes, counts, slot states,
-    # residual lanes, counts, overflow, flag.
+    # One buffer, every byte written by the kernel: the int32 table lanes,
+    # counts, slot states, residual lanes, counts, overflow and flag word,
+    # then the bool table valid, residual valid and flag.
     sizes = [slots * n_lanes, slots, slots, n_res * n_lanes, n_res, 1, 1]
-    out = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    tab_lanes, tab_count, _, res_lanes, res_count, overflow, flag = torch.split(out, sizes)
-    with torch.cuda.device(dev):
-        rc = lib.locust_fused_preagg(
+    n_int = sum(sizes)
+    out = torch.empty(4 * n_int + slots + n_res + 1, dtype=torch.uint8, device=dev)
+    ints, bools = out.split([4 * n_int, slots + n_res + 1])
+    tab_lanes, tab_count, _, res_lanes, res_count, overflow, _ = ints.view(torch.int32).split(sizes)
+    tab_valid, res_valid, flag = bools.view(torch.bool).split([slots, n_res, 1])
+    with device_guard(dev):
+        rc = fn(
             lines.data_ptr(), num_lines, width, tile, emits, cfg.key_width, slots,
-            n_probes, r_cap, out.data_ptr(), *delim_words(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            n_probes, r_cap, *line_geometry(width), out.data_ptr(), *delim_words(),
+            dev.index, stream_handle(dev),
         )
     if rc != 0:
         raise RuntimeError(f"fused pre-aggregation kernel launch failed: cudaError {rc}")
     fused_block_preagg.launches += 1
-    table = KVBatch(tab_lanes.view(slots, n_lanes), tab_count, tab_count > 0)
-    resid = KVBatch(res_lanes.view(n_res, n_lanes), res_count, res_count > 0)
-    return table, resid, overflow[0], flag[0] > 0
+    table = KVBatch(tab_lanes.view(slots, n_lanes), tab_count, tab_valid)
+    resid = KVBatch(res_lanes.view(n_res, n_lanes), res_count, res_valid)
+    return table, resid, overflow[0], flag[0]
 
 
 fused_block_preagg.launches = 0

@@ -10,7 +10,9 @@ only for a CPU tensor.  The kernel's design note is in its source.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -51,33 +53,69 @@ def tokenize_reference(lines: torch.Tensor, emits: int, key_width: int):
     return keys, valid, overflow
 
 
-def delim_words() -> list[int]:
+@functools.cache
+def delim_words() -> tuple[int, ...]:
     """The delimiter set as four 64-bit masks (bit b: byte b ends a token)."""
     words = [0, 0, 0, 0]
     for b in FULL_DELIMITERS:
         words[b >> 6] |= 1 << (b & 63)
-    return words
+    return tuple(words)
 
 
-def _lib() -> ctypes.CDLL:
+@functools.cache
+def line_geometry(width: int) -> tuple[int, int]:
+    """The kernels' line layout (``csrc/tokenize.cuh``): ``(g_log, chunks)``,
+    a group of ``2**g_log`` lanes per line, each lane owning ``chunks``
+    16-byte chunks, ``16 * chunks * 2**g_log >= width``."""
+    lanes = 1
+    while lanes < 32 and 16 * lanes < width:
+        lanes *= 2
+    return lanes.bit_length() - 1, -(-width // (16 * lanes))
+
+
+@functools.cache
+def _kernel() -> tuple:
+    """The C entry point and the kernel's (max width, max emits), loaded
+    and asked once."""
     lib = _build.load("tokenize")
+    p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     fn = lib.locust_tokenize
-    if fn.argtypes is None:
-        p, i, ll, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-        fn.argtypes = [p, ll, i, i, i, p, p, p, u64, u64, u64, u64, p]
-        fn.restype = ctypes.c_int
-        for name in ("locust_tokenize_max_width", "locust_tokenize_max_emits"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
+    fn.argtypes = [p, ll, i, i, i, i, i, p, p, p, p, u64, u64, u64, u64, p]
+    fn.restype = ctypes.c_int
+    bounds = []
+    for name in ("locust_tokenize_max_width", "locust_tokenize_max_emits"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+        bounds.append(getattr(lib, name)())
+    return fn, *bounds
+
+
+def device_guard(dev: torch.device):
+    """Makes ``dev`` the current CUDA device for a launch, where it is not."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_handle(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, as
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives it, without
+    building a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+# The kernel's overflow scratch, 17 uint64 ticket words per (device,
+# stream): zero before every launch and left zero by it, so a call needs
+# no memset.
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def tokenize_block_kernel(lines: torch.Tensor, emits: int, key_width: int):
     """Tokenize a ``[L, W]`` uint8 block: keys uint8 ``[L, E, K]``, valid
     bool ``[L, E]``, overflow int32 scalar.
 
-    A CUDA tensor launches ``csrc/tokenize.cu`` (``launches`` counts the
-    launches); a CPU tensor takes ``tokenize_reference``.
+    A CUDA tensor launches ``csrc/tokenize.cu``, one device op (``launches``
+    counts the launches); a CPU tensor takes ``tokenize_reference``.
     """
     if lines.device.type == "cpu":
         return tokenize_reference(lines, emits, key_width)
@@ -87,28 +125,31 @@ def tokenize_block_kernel(lines: torch.Tensor, emits: int, key_width: int):
         raise ValueError("tokenizer: lines must be a contiguous uint8 [L, W] tensor")
     if key_width % 4 != 0:
         raise ValueError(f"tokenizer: key_width {key_width} not a multiple of 4")
-    lib = _lib()
+    fn, max_width, max_emits = _kernel()
     num_lines, width = lines.shape
-    if width > lib.locust_tokenize_max_width() or emits > lib.locust_tokenize_max_emits():
+    if width > max_width or emits > max_emits:
         raise ValueError(
             f"tokenizer: width {width} or emits {emits} above the kernel's "
-            f"bounds ({lib.locust_tokenize_max_width()}, "
-            f"{lib.locust_tokenize_max_emits()})"
+            f"bounds ({max_width}, {max_emits})"
         )
     dev = lines.device
     keys = torch.empty((num_lines, emits, key_width), dtype=torch.uint8, device=dev)
     valid = torch.empty((num_lines, emits), dtype=torch.bool, device=dev)
-    per_line = torch.empty((num_lines,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.locust_tokenize(
-            lines.data_ptr(), num_lines, width, emits, key_width,
-            keys.data_ptr(), valid.data_ptr(), per_line.data_ptr(),
-            *delim_words(), torch.cuda.current_stream(dev).cuda_stream,
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    with device_guard(dev):
+        stream = stream_handle(dev)
+        scratch = _scratch.get((dev.index, stream))
+        if scratch is None:
+            scratch = _scratch[dev.index, stream] = torch.zeros(17, dtype=torch.int64, device=dev)
+        rc = fn(
+            lines.data_ptr(), num_lines, width, emits, key_width, *line_geometry(width),
+            keys.data_ptr(), valid.data_ptr(), total.data_ptr(), scratch.data_ptr(),
+            *delim_words(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"tokenizer kernel launch failed: cudaError {rc}")
     tokenize_block_kernel.launches += 1
-    return keys, valid, per_line.sum(dtype=torch.int32)
+    return keys, valid, total
 
 
 tokenize_block_kernel.launches = 0
