@@ -21,17 +21,27 @@ the CLI; ``sort_mode="fused"`` (the fused kernel + the hash-table fold)
 through ``run_fused`` and the CLI (``--sort-mode fused --no-timing``);
 ``"hasht"`` and ``"hasht-mxu"`` through ``run_fused``; and ``"fused"``
 through ``run_fused`` over a seeded corpus whose vocabulary overfills
-the kernel's table, so that flagged blocks take the stock re-fold.  The
-kernels'
-launch counters are set to 0 just before each path and read just after
-it; each path must launch each kernel exactly as often as its blocks
-demand.  The ``kernels`` line reports each kernel's count on its CLI path
-as ``launches`` and every path's in ``launches_by_path``.
+the kernel's table, so that flagged blocks take the stock re-fold.  Then
+the rest of the single-device job: the torch.sort modes (``lex``,
+``hash``, ``hashp``, ``hashp2``, ``hash1``, ``radix``) through
+``run_fused``; ``run_stream`` over a ``StreamingCorpus`` of the corpus
+file under ``fused`` (one kernel launch per segment of blocks) and
+``bitonic``, and under ``fused`` over the large vocabulary (one flagged
+segment, re-folded whole); ``run_stream`` and ``run_checkpointed``
+stopped by an exception after block 50 and resumed from their
+snapshots; ``run_batch`` of three jobs; and the staged CLI (stage 1 on
+two line ranges, tsv and bin, then stage 2 on both), ``--stream
+--checkpoint-dir`` under fused and ``--auto-caps``.  The kernels' launch
+counters are set to 0 just before each path and read just after it; each
+path must launch each kernel exactly as often as its blocks demand.  The
+``kernels`` line reports each kernel's count on its CLI path as
+``launches`` and every path's in ``launches_by_path``.
 
 The times phase reports, per kernel, the wall time of a call, its device
 ops and their device time as the profiler records them, and the kernel's
 own device time; a call of the tokenizer or of the fused pre-aggregation
-must be one device op.
+must be one device op.  Kernel C is timed at the block shape and at the
+``run_stream`` segment shape.
 
 Output: one line per check, the card's name and power limit, one JSON
 line with each kernel's numbers, and last a JSON line
@@ -209,6 +219,9 @@ def main() -> int:
     from locust_tpu_torch.core.kv import KVBatch
     from locust_tpu_torch.core.packing import pack_keys
     from locust_tpu_torch.engine import MapReduceEngine, finalize_host_pairs
+    from locust_tpu_torch.io import serde
+    from locust_tpu_torch.io.loader import StreamingCorpus
+    from locust_tpu_torch.state import load_jax_checkpoint
     from locust_tpu_torch.ops.kernels.fused_fold import (
         fused_block_preagg,
         fused_preagg_reference,
@@ -274,7 +287,8 @@ def main() -> int:
         # (name, block, E, K): the main path's shape, then other widths
         # (below 16 and not multiples of 16: unaligned lines), E and K.
         cases = [("fuzz", fuzz, E, K), ("corpus", rows[:BL], E, K),
-                 ("corpus_tail", rows[-BL:], E, K), ("special rows", special, E, K)]
+                 ("corpus_tail", rows[-BL:], E, K), ("special rows", special, E, K),
+                 ("corpus, a run_stream segment (a flagged segment's re-fold)", rows[:8 * BL], E, K)]
         for w in (1, 15, 33, 100, 129, 2048):
             wide = alphabet[rng.integers(0, len(alphabet), (1024, w))]
             wide[rng.random(1024) < 0.2, w // 3:w // 3 + 40] = ord("w")
@@ -379,6 +393,7 @@ def main() -> int:
             # 16 blocks' lines in one call: 2,048 tiles, more than the
             # blocks that fit on the card at once, so each block takes
             # several tiles; and a single tile.
+            ("corpus, a run_stream segment (8 blocks, 1,024 tiles)", rows[:8 * BL], cfg_f, {}, False),
             ("corpus, 16 blocks (2,048 tiles)", rows[:16 * BL], cfg_f, {}, False),
             ("corpus, one tile", rows[BL:BL + 32], cfg_f, {}, False),
         ]
@@ -581,6 +596,249 @@ def main() -> int:
                 f"{mode_mbs[mode]:.3f} MB/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
         log(f"  run_fused MB/s (medians of 5): {json.dumps(mode_mbs)}")
 
+    # ---- the rest of the single-device job: the torch.sort modes, the
+    # streaming, resumable and batched runners, and the staged CLI, all
+    # over the corpus file in a temporary directory.
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    corpus_file = os.path.join(work.name, "corpus.txt")
+    with open(corpus_file, "wb") as f:
+        f.write(b"\n".join(lines) + b"\n")
+
+    def check_pairs(name, res, want_pairs):
+        pairs = res.to_host_pairs()
+        if pairs != want_pairs or res.truncated:
+            raise AssertionError(f"{name}: host pairs differ from the oracle "
+                                 f"({len(pairs)} vs {len(want_pairs)} keys)")
+
+    def check_counts(*names):
+        for name in names:
+            got = by_path[name]
+            log(f"  launches in {name}: {got}, expected {expected[name]}")
+            if got != expected[name]:
+                raise AssertionError(f"{name} did not launch each kernel as its path must: "
+                                     f"{got} != {expected[name]}")
+
+    def run_cli(name, argv):
+        """The CLI as a user calls it; its stdout and this path's counts."""
+        out = io.BytesIO()
+        stdout = io.TextIOWrapper(out, write_through=True)
+        with contextlib.redirect_stdout(stdout):
+            rc, by_path[name] = counted(lambda: cli.main(argv))
+        if rc != 0:
+            raise AssertionError(f"CLI {argv} exited {rc}")
+        return out.getvalue()  # before the wrapper, and with it `out`, is closed
+
+    def median_s(fn, n=3):
+        runs = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        return float(np.median(runs)), runs
+
+    def stream_of_corpus():
+        return StreamingCorpus(corpus_file, W, BL)
+
+    with phase("the torch.sort modes through run_fused over the replicated corpus"):
+        sort_modes = ("lex", "hash", "hashp", "hashp2", "hash1", "radix")
+        for mode in sort_modes:
+            e = MapReduceEngine(EngineConfig(sort_mode=mode, use_pallas=True))
+            e.run_fused(rows[: 2 * BL])  # first-call warm-up
+            torch.cuda.synchronize()
+            key = f"run_fused_{mode}"
+            res, by_path[key] = counted(lambda: e.run_fused(rows))
+            expected[key] = {"tokenize": nblocks, "bitonic_sort": 0, "fused_fold": 0}
+            check_pairs(key, res, oracle)
+            m, runs = median_s(lambda: e.run_fused(rows))
+            mode_mbs[mode] = corpus_bytes / m / 1e6
+            log(f"  {key}: {res.num_segments} distinct keys == oracle; 3 runs median "
+                f"{m * 1e3:.3f} ms, {mode_mbs[mode]:.3f} MB/s; runs ms "
+                f"{[round(r * 1e3, 3) for r in runs]}")
+            del e
+        check_counts(*(f"run_fused_{m}" for m in sort_modes))
+        log(f"  run_fused MB/s by mode: {json.dumps(mode_mbs)}")
+
+    fe = engines["fused"]
+    seg = fe._fused_stream_seg
+    nseg = -(-nblocks // seg)
+    stream_mbs = {}
+    with phase("run_stream over a StreamingCorpus of the corpus file: fused, then bitonic"):
+        sres, by_path["run_stream_fused"] = counted(lambda: fe.run_stream(stream_of_corpus()))
+        check_pairs("run_stream_fused", sres, oracle)
+        fs = sres.stream["fused"]
+        log(f"  run_stream_fused: {sres.num_segments} distinct keys == oracle, fused_kernel "
+            f"{sres.fused_kernel}, stream {json.dumps(sres.stream)}")
+        if (sres.fused_kernel != "stream" or fs["segments"] != nseg or seg != 8
+                or fs["interpret"] or sres.fused_refolds):
+            raise AssertionError(f"run_stream under fused: expected {nseg} segments of 8 blocks "
+                                 f"through the kernel and no re-fold, got {fs}, "
+                                 f"{sres.fused_refolds} re-folds")
+        expected["run_stream_fused"] = {"tokenize": 0, "bitonic_sort": 0, "fused_fold": nseg}
+        # The 40,000-word vocabulary (8 blocks): one segment, flagged, so
+        # the whole segment is folded again through the tokenizer and the
+        # hasht fold (655,360 emits at once).
+        torch.cuda.reset_peak_memory_stats()
+        vsres, by_path["run_stream_fused_vocab"] = counted(
+            lambda: fe.run_stream(iter([vrows[i:i + BL] for i in range(0, len(vrows), BL)])))
+        check_pairs("run_stream_fused_vocab", vsres, voracle)
+        expected["run_stream_fused_vocab"] = {"tokenize": 1, "bitonic_sort": 0, "fused_fold": 1}
+        if vsres.fused_refolds != 1 or vsres.stream["fused"]["segments"] != 1:
+            raise AssertionError(f"run_stream under fused, large vocabulary: "
+                                 f"{vsres.fused_refolds} re-folds of {vsres.stream['fused']}")
+        log(f"  run_stream_fused_vocab: {len(vpairs)} distinct keys == oracle, 1 segment "
+            f"flagged and re-folded; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        bres, by_path["run_stream_bitonic"] = counted(lambda: eng.run_stream(stream_of_corpus()))
+        check_pairs("run_stream_bitonic", bres, oracle)
+        expected["run_stream_bitonic"] = {"tokenize": nblocks, "bitonic_sort": nblocks,
+                                          "fused_fold": 0}
+        log(f"  run_stream_bitonic: {bres.num_segments} distinct keys == oracle, stream "
+            f"{json.dumps(bres.stream)}")
+        check_counts("run_stream_fused", "run_stream_fused_vocab", "run_stream_bitonic")
+        for mode, e in (("fused", fe), ("bitonic", eng)):
+            m, runs = median_s(lambda: e.run_stream(stream_of_corpus()))
+            stream_mbs[mode] = corpus_bytes / m / 1e6
+            log(f"  run_stream under {mode}, 3 runs: median {m * 1e3:.3f} ms, "
+                f"{stream_mbs[mode]:.3f} MB/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
+        # What the stream is waiting for: the host reader alone, and the
+        # fold loop over blocks read beforehand.
+        m, runs = median_s(lambda: sum(1 for _ in stream_of_corpus()))
+        stream_mbs["reader_alone"] = corpus_bytes / m / 1e6
+        held = list(stream_of_corpus())
+        for mode, e in (("fused", fe), ("bitonic", eng)):
+            m, runs = median_s(lambda: e.run_stream(iter(held)))
+            stream_mbs[f"{mode}_blocks_in_memory"] = corpus_bytes / m / 1e6
+        del held
+        log(f"  run_stream MB/s (medians of 3; the reader alone, and run_stream over blocks "
+            f"read beforehand): {json.dumps(stream_mbs)}")
+
+    class Stop(RuntimeError):
+        """The injected crash."""
+
+    def dying(blocks, after):
+        for i, blk in enumerate(blocks):
+            if i == after:
+                raise Stop(f"stopped before block {after}")
+            yield blk
+
+    with phase("crash and resume: run_stream (bitonic, fused) and run_checkpointed, "
+               "stopped after block 50"):
+        fp = stream_of_corpus().fingerprint()
+        for mode, e in (("bitonic", eng), ("fused", fe)):
+            ckpt = os.path.join(work.name, f"stream_{mode}")
+            try:
+                e.run_stream(dying(stream_of_corpus(), 50), checkpoint_dir=ckpt, every=8,
+                             fingerprint=fp)
+            except Stop:
+                pass
+            else:
+                raise AssertionError("the dying iterator did not stop run_stream")
+            start = load_jax_checkpoint(os.path.join(ckpt, "state.npz"), "cpu").next_block
+            name = f"run_stream_{mode}_resumed"
+            res, by_path[name] = counted(lambda: e.run_stream(
+                stream_of_corpus(), checkpoint_dir=ckpt, every=8, fingerprint=fp))
+            check_pairs(name, res, oracle)
+            rest = nblocks - start
+            expected[name] = ({"tokenize": rest, "bitonic_sort": rest, "fused_fold": 0}
+                              if mode == "bitonic" else
+                              {"tokenize": 0, "bitonic_sort": 0, "fused_fold": -(-rest // seg)})
+            if start != 48 or res.stream["blocks"] != rest:
+                raise AssertionError(f"{name}: snapshot at block {start} (expected 48), "
+                                     f"{res.stream['blocks']} blocks folded (expected {rest})")
+            log(f"  {name}: snapshot at block {start}, {rest} blocks folded after it, "
+                f"pairs == oracle, checkpoint {json.dumps(res.stream['ckpt'])}")
+        ckpt = os.path.join(work.name, "checkpointed")
+        real_fold, folds = eng.fold_block, [0]
+
+        def dying_fold(acc, blk):
+            if folds[0] == 50:
+                raise Stop("stopped before block 50")
+            folds[0] += 1
+            return real_fold(acc, blk)
+
+        eng.fold_block = dying_fold
+        try:
+            eng.run_checkpointed(rows, ckpt, every=8)
+        except Stop:
+            pass
+        else:
+            raise AssertionError("the dying fold did not stop run_checkpointed")
+        finally:
+            del eng.fold_block  # the class's method again
+        start = load_jax_checkpoint(os.path.join(ckpt, "state.npz"), "cpu").next_block
+        res, by_path["run_checkpointed_resumed"] = counted(
+            lambda: eng.run_checkpointed(rows, ckpt, every=8))
+        check_pairs("run_checkpointed_resumed", res, oracle)
+        rest = nblocks - start
+        expected["run_checkpointed_resumed"] = {"tokenize": rest, "bitonic_sort": rest,
+                                                "fused_fold": 0}
+        if start != 48:
+            raise AssertionError(f"run_checkpointed: snapshot at block {start}, expected 48")
+        log(f"  run_checkpointed_resumed: snapshot at block {start}, {rest} blocks folded "
+            "after it, pairs == oracle")
+        check_counts("run_stream_bitonic_resumed", "run_stream_fused_resumed",
+                     "run_checkpointed_resumed")
+
+    with phase("run_batch: three jobs (two slices of the corpus, one zero job)"):
+        jb = 20
+        stack = np.zeros((3, jb, BL, W), np.uint8)
+        for j in range(2):
+            stack[j] = rows[j * jb * BL:(j + 1) * jb * BL].reshape(jb, BL, W)
+        jobs, by_path["run_batch"] = counted(lambda: eng.run_batch(stack))
+        expected["run_batch"] = {"tokenize": 3 * jb, "bitonic_sort": 3 * jb, "fused_fold": 0}
+        for j in range(2):
+            part = lines[j * jb * BL:(j + 1) * jb * BL]
+            check_pairs(f"run_batch job {j}", jobs[j], sorted(oracle_wordcount(part, W, E, K).items()))
+            if jobs[j].to_host_pairs() != eng.run_fused(rows[j * jb * BL:(j + 1) * jb * BL]).to_host_pairs():
+                raise AssertionError(f"run_batch job {j} differs from run_fused of its slice")
+        if jobs[2].num_segments or bool(jobs[2].table.valid.any()):
+            raise AssertionError("run_batch: the zero job's table is not empty")
+        log(f"  run_batch: jobs of {jb} blocks: {jobs[0].num_segments} and "
+            f"{jobs[1].num_segments} distinct keys == oracle and == run_fused of their "
+            "slices; the zero job's table is empty")
+        check_counts("run_batch")
+
+    with phase("the staged CLI: stage 1 on two line ranges (tsv, bin), stage 2 on both; "
+               "--stream --checkpoint-dir under fused; --auto-caps"):
+        half = len(lines) // 2
+        n1, n2 = -(-half // BL), -(-(len(lines) - half) // BL)
+        part_t = os.path.join(work.name, "node0.tsv")
+        part_b = os.path.join(work.name, "node1.bin")
+        out1 = run_cli("cli_stage1_tsv", [corpus_file, "0", str(half), "0", "1", "-i", part_t,
+                                          "--inter-format", "tsv"])
+        out2 = run_cli("cli_stage1_bin", [corpus_file, str(half), "-1", "1", "1", "-i", part_b,
+                                          "--inter-format", "bin"])
+        out3 = run_cli("cli_stage2", [corpus_file, "0", "0", "2", "2", "-i", part_t, "-i", part_b])
+        expected["cli_stage1_tsv"] = {"tokenize": n1, "bitonic_sort": 2 * n1, "fused_fold": 0}
+        expected["cli_stage1_bin"] = {"tokenize": n2, "bitonic_sort": 2 * n2, "fused_fold": 0}
+        expected["cli_stage2"] = {"tokenize": 0, "bitonic_sort": 1, "fused_fold": 0}
+        half_oracle = sorted(oracle_wordcount(lines[:half], W, E, K).items())
+        with open(part_t, "rb") as f:
+            if f.read() != b"".join(k + b"\t" + str(v).encode() + b"\n" for k, v in half_oracle):
+                raise AssertionError("stage 1: the tsv intermediate differs from the oracle")
+        keys_b, values_b = serde.read_intermediate(part_b, K)
+        if len(values_b) != len(oracle_wordcount(lines[half:], W, E, K)):
+            raise AssertionError("stage 1: the bin intermediate has the wrong number of pairs")
+        if out1 or out2 or out3 != want:
+            raise AssertionError("the staged CLI's stdout differs from the oracle")
+        log(f"  stage 1 over [0, {half}) ({n1} blocks, tsv) and [{half}, end) ({n2} blocks, "
+            f"bin), stage 2 over both ({len(half_oracle) + len(values_b)} pairs): stdout == oracle")
+        out4 = run_cli("cli_stream_fused_ckpt", [
+            corpus_file, "--stream", "--checkpoint-dir", os.path.join(work.name, "cli_ckpt"),
+            "--sort-mode", "fused", "--no-timing"])
+        expected["cli_stream_fused_ckpt"] = {"tokenize": 0, "bitonic_sort": 0, "fused_fold": nseg}
+        out5 = run_cli("cli_auto_caps", [corpus_file, "--auto-caps"])
+        expected["cli_auto_caps"] = {"tokenize": nblocks, "bitonic_sort": 2 * nblocks,
+                                     "fused_fold": 0}
+        if out4 != want or out5 != want:
+            raise AssertionError("CLI --stream --checkpoint-dir or --auto-caps stdout differs "
+                                 "from the oracle")
+        log("  --stream --checkpoint-dir --sort-mode fused --no-timing and --auto-caps: "
+            "stdout == oracle")
+        check_counts("cli_stage1_tsv", "cli_stage1_bin", "cli_stage2", "cli_stream_fused_ckpt",
+                     "cli_auto_caps")
+
     with phase("times at the main path's shapes"):
         x = torch.from_numpy(np.ascontiguousarray(rows[:BL])).to(dev)
         # cuda_ms: events around back-to-back calls, what a caller waits
@@ -717,6 +975,40 @@ def main() -> int:
         b_ops, _, b_own = call_profile(torch, lambda: bitonic_sort_rows(fold_key, fold_pay),
                                        "bitonic")
 
+    with phase("times of kernel C at the run_stream segment shape"):
+        seg_lines = seg * BL
+        xs = torch.from_numpy(np.ascontiguousarray(rows[:seg_lines])).to(dev)
+
+        def seg_kernel():
+            return fused_block_preagg(xs, cfg_f)
+
+        def seg_plain():
+            return fused_preagg_reference(xs, cfg_f)
+
+        def seg_library():
+            keys, valid, _ = tokenize_block_kernel(xs, E, K)
+            return torch.unique(pack_keys(keys)[valid], dim=0, return_counts=True)
+
+        cs_ms = cuda_ms(torch, seg_kernel, reps=100)
+        cs_ops, cs_dev, cs_own = call_profile(torch, seg_kernel, "fused_preagg_kernel")
+        cs_plain, cs_plain_dev = cuda_ms(torch, seg_plain, reps=5), device_ms(torch, seg_plain, reps=5)
+        cs_lib, cs_lib_dev = cuda_ms(torch, seg_library), device_ms(torch, seg_library)
+        tab_s, res_s, _, _ = seg_kernel()
+        # In: the segment's lines; out: every table and residual row
+        # (lanes, count, valid), the overflow and the flag.
+        cs_bytes = seg_lines * W + (tab_s.size + res_s.size) * (K + 5) + 5
+        cs_bound, cs_by = bound_ms(cs_bytes, seg_lines * W)
+        log(f"  fused pre-aggregation [{seg_lines},{W}] E={E} K={K} ({seg} blocks, "
+            f"{seg_lines // 32} tiles), {tab_s.size} table + {res_s.size} residual rows: kernel "
+            f"{cs_ms:.4f} ms, {cs_ops:g} device ops per call, device {cs_dev:.4f} ms, the "
+            f"kernel's own {cs_own:.4f} ms ({cs_bound / cs_own:.4f} of the bound); plain "
+            f"{cs_plain:.4f} ms (device {_ms(cs_plain_dev)}), tokenizer + torch.unique "
+            f"{cs_lib:.4f} ms (device {_ms(cs_lib_dev)}), bound {cs_bound:.6f} ms ({cs_by}, "
+            f"{cs_bytes} bytes)")
+        if cs_ops != 1:
+            raise AssertionError(f"a fused pre-aggregation call at the segment shape is "
+                                 f"{cs_ops:g} device ops, not 1")
+
     sub = rows[: 8 * BL]
     for mode, e in (("bitonic", eng), ("fused", engines["fused"]), ("hasht", engines["hasht"])):
         with phase(f"where the device time goes: torch.profiler over run_fused under {mode}, 8 blocks"):
@@ -736,6 +1028,25 @@ def main() -> int:
                 f"{sort_us / 1e3:.3f} ms = {sort_us / busy:.1%} of busy")
             for name, us in by_name.most_common(12):
                 log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
+
+    with phase(f"where the device time goes: torch.profiler over run_stream under fused, "
+               f"{nblocks} blocks in {nseg} segments"):
+        kern = device_events(torch, lambda: fe.run_stream(stream_of_corpus()))
+        if not kern:
+            log("  the profiler recorded no device time: busy share not measured")
+        else:
+            span = max(k.time_range.end for k in kern) - min(k.time_range.start for k in kern)
+            by_name = collections.Counter()
+            for k in kern:
+                by_name[k.name[:70]] += k.time_range.elapsed_us()
+            busy = sum(by_name.values())
+            c_us = sum(us for name, us in by_name.items() if "fused_preagg" in name)
+            log(f"  {len(kern)} device ops ({len(kern) / nseg:g} per segment), busy "
+                f"{busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms device window: busy share "
+                f"{busy / span:.3f}; kernel C {c_us / 1e3:.3f} ms = {c_us / busy:.1%} of busy")
+            for name, us in by_name.most_common(12):
+                log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
+    work.cleanup()
 
     log(f"card: {smi}")
     report = {"kernels": [
@@ -773,8 +1084,15 @@ def main() -> int:
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
          "library_ms": c_lib, "device_ms": c_dev, "kernel_device_ms": c_own,
          "device_ops_per_call": c_ops,
-         "shape": f"[{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} residual rows"},
-    ]}
+         "shape": f"[{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} residual rows",
+         "segment": {"shape": f"[{seg * BL},{W}] E={E} K={K}, {tab_s.size} table + "
+                              f"{res_s.size} residual rows ({seg} blocks)",
+                     "launches": by_path["run_stream_fused"]["fused_fold"],
+                     "ms": cs_ms, "plain_ms": cs_plain, "bound_ms": cs_bound, "bound_by": cs_by,
+                     "library_ms": cs_lib, "device_ms": cs_dev, "kernel_device_ms": cs_own,
+                     "device_ops_per_call": cs_ops, "plain_device_ms": cs_plain_dev,
+                     "library_device_ms": cs_lib_dev}},
+    ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

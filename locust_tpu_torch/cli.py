@@ -1,16 +1,27 @@
-"""CLI driver: single-stage WordCount, ``FILE [line_start] [line_end]``.
+"""Command-line entry point: ``FILE [line_start] [line_end] [node_num] [stage]``.
 
-Port of the stage-0 path of ``locust_tpu/cli.py``: load the
-``[line_start, line_end)`` slice, run Map -> Process -> Reduce on one
-device, print the per-stage report on stderr and the ``key<TAB>count``
-table on stdout, byte for byte as the JAX CLI prints it.  The staged
-modes 1/2, ``--stream``, ``--mesh`` and the rest are later slices.
+Port of the single-device paths of ``locust_tpu/cli.py``, the
+reference's positional contract (reference MapReduce/src/main.cu:362-387)
+and its staged execution:
 
-Runs on CUDA unless ``--backend cpu``; with no GPU it exits with an
-error.  The map goes through the tokenizer kernel and the Process stage
-defaults to the bitonic kernel (``sort_mode="bitonic"``); ``--sort-mode
-hasht`` and ``fused`` fold through the hash table, with each block
-pre-aggregated by the fused kernel.
+  stage 0 (or absent)  load the ``[line_start, line_end)`` slice, run Map
+                       -> Process -> Reduce on one device, print the
+                       ``key<TAB>count`` table
+  stage 1              the same fold, then write this node's table as an
+                       intermediate file (``--intermediate``, ``tsv`` or
+                       ``bin``) instead of printing it
+  stage 2              read one or more intermediates (each file's format
+                       sniffed), sort and segment-reduce the pairs, print
+                       the table
+
+``--stream`` folds the file in bounded memory (``run_stream``; under
+``--sort-mode fused`` one fused-kernel launch per segment of blocks),
+``--checkpoint-dir`` makes the fold crash-resumable, ``--auto-caps`` sizes
+the key width and emits per line to the corpus.  The per-stage report
+goes to stderr; stdout is byte for byte the JAX CLI's in every mode and
+stage.  Runs on CUDA unless ``--backend cpu``; with no GPU it exits with
+an error.  The map goes through the tokenizer kernel and the Process
+stage defaults to the bitonic kernel (``sort_mode="bitonic"``).
 """
 
 from __future__ import annotations
@@ -18,63 +29,97 @@ from __future__ import annotations
 import argparse
 import sys
 
-from locust_tpu_torch.ops.process_stage import PORTED_SORT_MODES
+from locust_tpu_torch.config import SORT_MODES
+
+STAGE_SINGLE, STAGE_MAP, STAGE_REDUCE = 0, 1, 2
+DEFAULT_INTERMEDIATE = "/tmp/out.txt"  # the reference's path, main.cu:428
+
+
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mapreduce",
-        description="MapReduce WordCount on PyTorch/CUDA (single device)",
+        description="MapReduce WordCount on PyTorch/CUDA (single device, staged mode)",
     )
-    p.add_argument("filename", help="input text file")
+    p.add_argument("filename", help="input text file (stage 0/1); ignored for stage 2")
     p.add_argument("line_start", nargs="?", type=int, default=-1)
     p.add_argument("line_end", nargs="?", type=int, default=-1)
+    p.add_argument("node_num", nargs="?", type=int, default=0)
+    p.add_argument("stage", nargs="?", type=int, default=STAGE_SINGLE,
+                   choices=[STAGE_SINGLE, STAGE_MAP, STAGE_REDUCE])
+    p.add_argument("--intermediate", "-i", action="append", default=None,
+                   help=f"intermediate path(s); default {DEFAULT_INTERMEDIATE}")
+    p.add_argument("--inter-format", choices=["tsv", "bin"], default="tsv",
+                   help="stage-1 intermediate format: 'tsv' (key\\tvalue text) "
+                        "or 'bin' (packed binary KV); stage 2 sniffs each file")
     p.add_argument("--block-lines", type=int, default=4096)
     p.add_argument("--line-width", type=int, default=128)
     p.add_argument("--key-width", type=int, default=32)
     p.add_argument("--emits-per-line", type=int, default=20)
-    p.add_argument("--sort-mode", choices=list(PORTED_SORT_MODES), default="bitonic",
-                   help="Process-stage sort: 'bitonic' (the CUDA kernel), "
-                        "'hashp1' (torch.sort of the same folded key), or "
-                        "the hash-table fold: 'hasht' and 'fused' (the "
-                        "fused kernel), 'hasht-mxu' (matrix-product combine)")
+    p.add_argument("--auto-caps", action="store_true",
+                   help="size key_width / emits_per_line to the corpus's measured "
+                        "maxima (lossless: the same table); with --stream the "
+                        "measuring pass re-reads the file in bounded memory")
+    p.add_argument("--sort-mode", choices=list(SORT_MODES), default="bitonic",
+                   help="Process-stage sort: 'bitonic' (the CUDA kernel), the "
+                        "torch.sort modes 'lex', 'hash', 'hashp', 'hashp2', "
+                        "'hashp1', 'hash1', 'radix' (LSD counting sort), or the "
+                        "hash-table fold: 'hasht' and 'fused' (the fused kernel), "
+                        "'hasht-mxu' (matrix-product combine)")
     p.add_argument("--no-timing", action="store_true",
                    help="fold block after block without the per-stage report")
     p.add_argument("--limit", type=int, default=None,
                    help="print only the first N table rows")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="crash-resumable block-granular snapshots: a re-run with "
+                        "the same corpus and configuration resumes at the last one")
+    p.add_argument("--checkpoint-every", type=_positive_int, default=8,
+                   help="blocks between snapshots (with --checkpoint-dir)")
+    p.add_argument("--sync-checkpoint", action="store_true",
+                   help="write snapshots inside the fold loop instead of on the "
+                        "background writer (the same files)")
+    p.add_argument("--stream", action="store_true",
+                   help="bounded-memory ingest: stream the file in blocks instead "
+                        "of loading it whole")
+    p.add_argument("--trace", action="store_true",
+                   help="print a wall-clock span report (load/run/output) on stderr")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
-                   help="device to run on (default cuda; there is no "
-                        "silent fallback to the CPU)")
+                   help="device to run on (default cuda; there is no silent "
+                        "fallback to the CPU)")
     return p
-
-
-def _stage_report(spans_ms: dict[str, float]) -> str:
-    """Spans by descending time with a percent-of-total column (the JAX
-    CLI's SpanTimer.report format)."""
-    total = sum(spans_ms.values())
-    width = max(len(k) for k in spans_ms)
-    rows = sorted(spans_ms.items(), key=lambda kv: (-kv[1], kv[0]))
-    return "\n".join(
-        f"{k.ljust(width)}  {v:10.3f} ms  "
-        f"{(100.0 * v / total if total else 0.0):5.1f}%"
-        for k, v in rows
-    )
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
-    from locust_tpu_torch.config import EngineConfig
-    from locust_tpu_torch.engine import MapReduceEngine, resolve_device
-    from locust_tpu_torch.io import loader
+    from locust_tpu_torch.engine import resolve_device
 
     try:
         device = resolve_device(args.backend)
     except RuntimeError as e:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
+    try:
+        return _run(args, device)
+    except OSError as e:
+        print(f"mapreduce: error: {e}", file=sys.stderr)
+        return 1
+
+
+def _run(args, device) -> int:
+    import dataclasses
+
+    from locust_tpu_torch.config import EngineConfig
+    from locust_tpu_torch.io import loader
+    from locust_tpu_torch.utils.profiling import SpanTimer
+
     # The JAX compiler's one wordcount rewrite (plan/optimize.py
-    # fuse_fold_kernel, applied in plan/compile.py _wordcount_engine): a
-    # "hasht" fold runs as "fused", which gives the same table.
+    # fuse_fold_kernel): a "hasht" fold runs as "fused", the same table.
     sort_mode = "fused" if args.sort_mode == "hasht" else args.sort_mode
     cfg = EngineConfig(
         block_lines=args.block_lines,
@@ -83,25 +128,123 @@ def main(argv=None) -> int:
         emits_per_line=args.emits_per_line,
         sort_mode=sort_mode,
         use_pallas=True,
+        async_checkpoint=not args.sync_checkpoint,
     )
-    try:
-        rows = loader.load_rows(args.filename, cfg.line_width, args.line_start, args.line_end)
-    except OSError as e:
-        print(f"mapreduce: error: {e}", file=sys.stderr)
-        return 1
-    print(f"[locust] {rows.shape[0]} lines loaded", file=sys.stderr)
+    timer = SpanTimer()
+    inter = args.intermediate or [DEFAULT_INTERMEDIATE]
+    if args.stage == STAGE_REDUCE:
+        return _reduce_stage(args, cfg, device, inter, timer)
+
+    # --auto-caps: measure once, shrink key_width / emits_per_line to
+    # their lossless floors; table_size stays the flags' resolution so the
+    # table is the same either way.
+    rows = None
+    auto_caps_fp = None  # the file's identity when measured (checked at run)
+    if args.auto_caps:
+        with timer.span("load"):
+            if args.stream:
+                measure = loader.StreamingCorpus(
+                    args.filename, cfg.line_width, cfg.block_lines,
+                    args.line_start, args.line_end,
+                )
+                auto_caps_fp = measure.fingerprint()
+                max_tok, max_per_line = loader.measure_caps_stream(measure)
+            else:
+                rows = loader.load_rows(args.filename, cfg.line_width,
+                                        args.line_start, args.line_end)
+                # The width-cut rows the engine sees, NULs included.
+                max_tok, max_per_line = loader.measure_caps([r.tobytes() for r in rows])
+        kw, epl = loader.size_caps(max_tok, max_per_line, cfg.key_width, cfg.emits_per_line)
+        cfg = dataclasses.replace(cfg, key_width=kw, emits_per_line=epl,
+                                  table_size=cfg.resolved_table_size)
+        print(f"[locust] auto-caps: max_token={max_tok}B max_tokens/line={max_per_line} "
+              f"-> key_width={cfg.key_width} emits_per_line={cfg.emits_per_line}",
+              file=sys.stderr)
+
+    from locust_tpu_torch.engine import MapReduceEngine
+
     eng = MapReduceEngine(cfg, device=device)
-    res = eng.run_fused(rows) if args.no_timing else eng.timed_run(rows)
+    with timer.span("load"):
+        if args.stream:
+            stream = loader.StreamingCorpus(args.filename, cfg.line_width, cfg.block_lines,
+                                            args.line_start, args.line_end)
+            if auto_caps_fp is not None and stream.fingerprint() != auto_caps_fp:
+                print("mapreduce: error: corpus changed between the --auto-caps "
+                      "measuring pass and the run; re-run (or drop --auto-caps for a "
+                      "file that is being written to)", file=sys.stderr)
+                return 1
+        else:
+            if rows is None:
+                rows = loader.load_rows(args.filename, cfg.line_width,
+                                        args.line_start, args.line_end)
+            print(f"[locust] {rows.shape[0]} lines loaded", file=sys.stderr)
+    with timer.span("run"):  # each runner ends in a device sync
+        if args.stream:
+            kw = {}
+            if args.checkpoint_dir:
+                kw = dict(checkpoint_dir=args.checkpoint_dir, every=args.checkpoint_every,
+                          fingerprint=stream.fingerprint())
+            res = eng.run_stream(stream, **kw)
+        elif args.checkpoint_dir:
+            res = eng.run_checkpointed(rows, args.checkpoint_dir, every=args.checkpoint_every)
+        elif args.no_timing:
+            res = eng.run_fused(rows)
+        else:
+            res = eng.timed_run(rows)
+    if res.stream is not None:
+        print(f"[locust] stream: {res.stream}", file=sys.stderr)
     if not args.no_timing:
-        print(_stage_report({
+        stages = SpanTimer()
+        stages.spans_ms = {
             "Map stage": res.times.map_ms,
             "Process stage": res.times.process_ms,
             "Reduce stage": res.times.reduce_ms,
-        }), file=sys.stderr)
+        }
+        print(stages.report(), file=sys.stderr)
     if res.truncated:
-        print("[locust] WARN: table capacity exceeded; tail keys dropped",
-              file=sys.stderr)
-    _print_table(res.to_host_pairs(), args.limit)
+        print("[locust] WARN: table capacity exceeded; tail keys dropped", file=sys.stderr)
+    with timer.span("output"):
+        if args.stage == STAGE_MAP:
+            res.dump_intermediate(inter[0], args.inter_format)
+            print(f"[locust] node {args.node_num}: intermediate written to {inter[0]}",
+                  file=sys.stderr)
+        else:
+            _print_table(res.to_host_pairs(), args.limit)
+    if args.trace:
+        print(timer.report(), file=sys.stderr)
+    return 0
+
+
+def _reduce_stage(args, cfg, device, inter, timer) -> int:
+    """Stage 2: merge the map nodes' intermediates.  The pairs are always
+    sorted again, so files may come in any order."""
+    import numpy as np
+    import torch
+
+    from locust_tpu_torch.core.kv import KVBatch
+    from locust_tpu_torch.engine import finalize_host_pairs
+    from locust_tpu_torch.io import serde
+    from locust_tpu_torch.ops.process_stage import sort_and_compact
+    from locust_tpu_torch.ops.reduce_stage import segment_reduce
+
+    with timer.span("load"):
+        parts = [serde.read_intermediate(path, cfg.key_width) for path in inter]
+        keys = np.concatenate([k for k, _ in parts])
+        values = np.concatenate([v for _, v in parts])
+    print(f"[locust] node {args.node_num}: {keys.shape[0]} intermediate pairs "
+          f"from {len(inter)} file(s)", file=sys.stderr)
+    batch = KVBatch.from_bytes(
+        torch.from_numpy(keys).to(device),
+        torch.from_numpy(values).to(device),
+        torch.ones(keys.shape[0], dtype=torch.bool, device=device),
+    )
+    with timer.span("run"):  # finalize_host_pairs syncs
+        table = segment_reduce(sort_and_compact(batch, cfg.sort_mode))
+        pairs = finalize_host_pairs(table)
+    with timer.span("output"):
+        _print_table(pairs, args.limit)
+    if args.trace:
+        print(timer.report(), file=sys.stderr)
     return 0
 
 

@@ -20,9 +20,8 @@ import os
 # delimiters (reference MapReduce/src/main.cu:138).
 DELIMITERS: bytes = b" ,.-;:'()\"\t"
 
-# Process-stage sort strategies, named as in the JAX package.  The ported
-# ones are ops/process_stage.PORTED_SORT_MODES; the rest raise
-# NotImplementedError until their slice lands.
+# Process-stage sort strategies, named as in the JAX package
+# (ops/process_stage.py).
 SORT_MODES = (
     "hash", "hashp", "hashp2", "hashp1", "hash1", "radix", "bitonic", "lex",
     "hasht", "hasht-mxu", "fused",
@@ -71,6 +70,41 @@ if FUSED_RESIDUAL_ROWS < 8 or FUSED_RESIDUAL_ROWS & (FUSED_RESIDUAL_ROWS - 1):
         f"LOCUST_FUSED_RESIDUAL_ROWS must be a power of two >= 8, "
         f"got {FUSED_RESIDUAL_ROWS}"
     )
+
+# Blocks that run_stream stages into one segment and folds with ONE
+# fused-kernel launch (engine._run_stream_fused, the JAX package's
+# fold_segment); clamped by fused_stream_seg_blocks.
+FUSED_STREAM_BLOCKS: int = int(os.environ.get("LOCUST_FUSED_STREAM_BLOCKS", 8))
+if FUSED_STREAM_BLOCKS < 1:
+    raise ValueError(
+        f"LOCUST_FUSED_STREAM_BLOCKS must be >= 1, got {FUSED_STREAM_BLOCKS}"
+    )
+
+# The JAX package's cap on the lines of one interpret-mode kernel call
+# off the TPU.  The port's CPU path (the kernel's plain version) keeps it
+# in fused_stream_seg_blocks, so that both packages cut a stream into the
+# same segments on the CPU.
+FUSED_INTERPRET_MAX_LINES: int = int(
+    os.environ.get("LOCUST_FUSED_INTERPRET_MAX_LINES", 8192)
+)
+if FUSED_INTERPRET_MAX_LINES < 0:
+    raise ValueError(
+        f"LOCUST_FUSED_INTERPRET_MAX_LINES must be >= 0, "
+        f"got {FUSED_INTERPRET_MAX_LINES}"
+    )
+
+
+def fused_stream_seg_blocks(emits_per_block: int, block_lines: int, on_device: bool) -> int:
+    """Blocks per streaming segment of the fused kernel.  A segment's
+    emits stay below 2^24 (the JAX kernel's f32 count bound, kept for
+    parity); off the device (the plain version on the CPU) a segment also
+    keeps to FUSED_INTERPRET_MAX_LINES lines, as JAX does off the TPU."""
+    cap = max(1, ((1 << 24) - 1) // max(1, emits_per_block))
+    seg = min(FUSED_STREAM_BLOCKS, cap)
+    if not on_device and block_lines > 0:
+        seg = min(seg, max(1, FUSED_INTERPRET_MAX_LINES // block_lines))
+    return max(1, seg)
+
 
 # Bytes that end a token on the device beyond the strtok set: NUL (row
 # padding and embedded NULs) and the newline pair.
@@ -171,8 +205,8 @@ class EngineConfig:
 
     Same fields, order and defaults as the JAX package's ``EngineConfig``;
     the fields that only the JAX executor reads (``map_impl``,
-    ``donate_fold``, ``async_checkpoint``, ``stream_staging_ring``,
-    ``trace``) are kept so that ``repr`` and ``fingerprint`` agree.
+    ``donate_fold``, ``trace``) are kept so that ``repr`` and
+    ``fingerprint`` agree, and a checkpoint names the same run in both.
     """
 
     # Max bytes per input line (reference KeyValue.h:9, rounded to 128).
@@ -193,7 +227,9 @@ class EngineConfig:
     use_pallas: bool = False
     map_impl: str = "auto"
     donate_fold: bool = True
+    # Snapshots on the background writer (io/snapshot.py), not in the loop.
     async_checkpoint: bool = True
+    # run_stream stages blocks through reusable (page-locked) buffers.
     stream_staging_ring: bool = True
     trace: bool = False
 

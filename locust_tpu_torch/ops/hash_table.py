@@ -38,7 +38,7 @@ import torch
 from locust_tpu_torch.config import HASHT_FAMILY, HASHT_PROBES
 from locust_tpu_torch.core import packing
 from locust_tpu_torch.core.kv import KVBatch
-from locust_tpu_torch.ops.process_stage import require_mode, sort_and_compact
+from locust_tpu_torch.ops.process_stage import sort_and_compact
 from locust_tpu_torch.ops.reduce_stage import segment_reduce_into
 
 # How the probe loop's value combine is spelled: "xla" is the
@@ -321,7 +321,6 @@ def reduce_into(
 ) -> tuple[KVBatch, torch.Tensor]:
     """Reduce ``batch`` into a bounded ``out_size`` table; returns
     ``(table, num_segments)``.  The one place a fold picks sort or hasht."""
-    require_mode(sort_mode)
     if sort_mode in HASHT_FAMILY:
         return aggregate_exact(
             batch, out_size, combine, scatter_impl=scatter_impl_for(sort_mode)

@@ -3,10 +3,12 @@
 The engine's only state is its bounded table (the analog of a model's
 weights).  These helpers move it between the JAX package's numpy form
 (uint32 key lanes) and the port's tensors (int32 lanes holding the same
-bits), and read the snapshot the JAX engine's ``run_checkpointed`` writes
-(``locust_tpu/engine.py`` ``_save_state``).  With them JAX can fold part
-of a corpus and the port fold the rest: ``MapReduceEngine.run(rest,
-acc=table_from_jax(...))`` gives the answer of JAX's whole run.
+bits), and read and write the checkpoint snapshot of ``run_stream`` and
+``run_checkpointed``: one npz in the JAX engine's format field for field
+(``locust_tpu/engine.py`` ``_save_state``), so either package resumes
+the other's.  With them JAX can fold part of a corpus and the port fold
+the rest: ``MapReduceEngine.run(rest, acc=table_from_jax(...))`` gives
+the answer of JAX's whole run.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from locust_tpu_torch.core.kv import KVBatch
+from locust_tpu_torch.io.snapshot import finalize_snapshot
 
 
 class Snapshot(NamedTuple):
@@ -49,9 +52,33 @@ def table_to_numpy(table: KVBatch) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     )
 
 
+def save_snapshot(path: str, acc: KVBatch, next_block: int, overflow: torch.Tensor,
+                  max_distinct: torch.Tensor, fingerprint: str) -> None:
+    """Write the snapshot as one atomically replaced npz, so that table,
+    cursor and counters never tear apart: uint32 key lanes, int32 values,
+    bool valid, int64 ``next_block``, int32 ``overflow`` and
+    ``max_distinct``, and the run's fingerprint, as the JAX engine writes
+    them.  The temporary name keeps the .npz suffix (np.savez appends it
+    otherwise).  The copies to the host wait for the device."""
+    lanes, values, valid = table_to_numpy(acc)
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(
+        tmp,
+        key_lanes=lanes,
+        values=values,
+        valid=valid,
+        next_block=np.int64(next_block),
+        overflow=overflow.cpu().numpy().astype(np.int32),
+        max_distinct=max_distinct.cpu().numpy().astype(np.int32),
+        fingerprint=np.str_(fingerprint),
+    )
+    finalize_snapshot(tmp, path)
+
+
 def load_jax_checkpoint(path: str, device) -> Snapshot:
-    """Read a ``state.npz`` written by the JAX engine's checkpointing:
-    the table plus the block cursor and counters it was taken at."""
+    """Read a ``state.npz`` snapshot, written by either package's
+    checkpointing: the table plus the block cursor and counters it was
+    taken at."""
     with np.load(path) as z:
         return Snapshot(
             acc=table_from_jax(z["key_lanes"], z["values"], z["valid"], device),

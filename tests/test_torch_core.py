@@ -215,14 +215,22 @@ def test_engine_and_cli_raise_without_cuda(monkeypatch, tmp_path):
     assert cli.main([str(f), "--backend", "cpu"]) == 0
 
 
-def test_unported_sort_modes_raise_not_implemented():
+def test_unported_sort_modes_raise_not_implemented(tmp_path):
+    """Every sort mode is ported (slice 5); what is left of this surface,
+    the breaker failover of run_checkpointed, raises NotImplementedError
+    naming its ROADMAP item, and an unknown mode is refused."""
     from locust_tpu_torch.engine import MapReduceEngine
+    from locust_tpu_torch.ops.process_stage import sort_and_compact
 
-    for mode in ("hash", "lex", "radix"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            MapReduceEngine(tconfig.EngineConfig(sort_mode=mode), device="cpu")
-    for mode in tconfig.HASHT_FAMILY:  # ported in slice 2
+    for mode in tconfig.SORT_MODES:
         assert MapReduceEngine(tconfig.EngineConfig(sort_mode=mode), device="cpu")
+    eng = MapReduceEngine(tconfig.EngineConfig(sort_mode="hash"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        eng.run_checkpointed(np.zeros((4, 128), np.uint8), str(tmp_path), breaker=object())
+    with pytest.raises(ValueError, match="unknown sort mode"):
+        sort_and_compact(eng.empty_table(), "quick")
+    with pytest.raises(ValueError, match="sort_mode must be one of"):
+        tconfig.EngineConfig(sort_mode="quick")
 
 
 def test_kernel_wrappers_refuse_devices_without_a_kernel():
