@@ -31,20 +31,32 @@ segment, re-folded whole); ``run_stream`` and ``run_checkpointed``
 stopped by an exception after block 50 and resumed from their
 snapshots; ``run_batch`` of three jobs; and the staged CLI (stage 1 on
 two line ranges, tsv and bin, then stage 2 on both), ``--stream
---checkpoint-dir`` under fused and ``--auto-caps``.  The kernels' launch
-counters are set to 0 just before each path and read just after it; each
-path must launch each kernel exactly as often as its blocks demand.  The
-``kernels`` line reports each kernel's count on its CLI path as
-``launches`` and every path's in ``launches_by_path``.
+--checkpoint-dir`` under fused and ``--auto-caps``.  Then the plan layer
+and the ladder of apps, every CLI run through the compiled plan: the
+WordCount CLI under ``--sort-mode hasht`` (the optimizer's
+``fuse_fold_kernel`` rewrite: kernel C once per block); ``index`` and
+``tfidf`` over the corpus file with one document per block, byte for
+byte against a Python oracle, with their MB/s and a profiler breakdown;
+``pagerank`` over a seeded edge list at web-Google's scale (875,713
+nodes, 5,105,039 edges) on the card and on the CPU, against a float64
+oracle, with iterations per second; and ``--trace-out`` on WordCount
+(staged report and ``--stream``) and ``tfidf``, each trace validated
+against the port's schema.  The kernels' launch counters are set to 0
+just before each path and read just after it; each path must launch each
+kernel exactly as often as its blocks demand.  The ``kernels`` line
+reports each kernel's count on its CLI path as ``launches`` and every
+path's in ``launches_by_path``.
 
 The times phase reports, per kernel, the wall time of a call, its device
 ops and their device time as the profiler records them, and the kernel's
 own device time; a call of the tokenizer or of the fused pre-aggregation
-must be one device op.  Kernel C is timed at the block shape and at the
+must be one device op.  Kernel B is timed at the WordCount fold's, a
+block's and the tf fold's shapes, kernel C at the block shape and at the
 ``run_stream`` segment shape.
 
 Output: one line per check, the card's name and power limit, one JSON
-line with each kernel's numbers, and last a JSON line
+line with each kernel's numbers (and the MB/s of the runners and apps
+and the pagerank report), and last a JSON line
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA or without the ``locust_tpu_torch`` package beside it.
@@ -57,6 +69,7 @@ import collections
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -64,6 +77,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -205,6 +219,260 @@ def replicated_corpus(target_bytes: int) -> tuple[list[bytes], int]:
     return lines, total
 
 
+def oracle_docs(lines, lines_per_doc: int, line_width: int, emits: int, key_width: int):
+    """The apps' oracle over line-sharded documents (doc id of line i is
+    ``i // lines_per_doc``), with the engine's caps: the (word, doc)
+    counts and the number of documents."""
+    tf = collections.Counter()
+    for i, line in enumerate(lines):
+        doc = i // lines_per_doc
+        for t in [t for t in _SPLIT.split(line[:line_width]) if t][:emits]:
+            tf[t[:key_width], doc] += 1
+    return tf, -(-len(lines) // lines_per_doc)
+
+
+def render_postings(tf) -> bytes:
+    """``index``'s stdout: each word with its sorted doc set."""
+    docs = collections.defaultdict(set)
+    for word, doc in tf:
+        docs[word].add(doc)
+    return b"".join(w + b"\t" + b",".join(str(d).encode() for d in sorted(docs[w])) + b"\n"
+                    for w in sorted(docs))
+
+
+def render_tfidf(tf, n_docs: int) -> bytes:
+    """``tfidf``'s stdout: ``count * ln(n_docs / df)`` in float64."""
+    df = collections.Counter(word for word, _ in tf)
+    return b"".join(
+        w + b"\t" + str(d).encode() + b"\t"
+        + f"{tf[w, d] * math.log(n_docs / df[w]):.6f}".encode() + b"\n"
+        for w, d in sorted(tf))
+
+
+def synthetic_web_graph(seed: int = 20):
+    """A seeded edge list at web-Google's published scale (875,713 nodes,
+    5,105,039 edges): sources drawn with Pareto(2.0) weights over the
+    nodes that are not made dangling (12% are; more end up with no edge),
+    destinations with Pareto(1.5) weights, so both degrees are skewed."""
+    rng = np.random.default_rng(seed)
+    n, e = 875_713, 5_105_039
+    out_w = rng.pareto(2.0, n) + 1.0
+    out_w[rng.random(n) < 0.12] = 0.0
+    src = rng.choice(n, e, p=out_w / out_w.sum())
+    in_w = rng.pareto(1.5, n) + 1.0
+    dst = rng.choice(n, e, p=in_w / in_w.sum())
+    return n, src, dst
+
+
+def pagerank_oracle(src, dst, n: int, num_iters: int, damping: float) -> np.ndarray:
+    """The power iteration in float64 numpy, written out here."""
+    deg = np.bincount(src, minlength=n).astype(np.float64)
+    inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1.0), 0.0)
+    dangling = deg == 0
+    ranks = np.full(n, 1.0 / n)
+    for _ in range(num_iters):
+        contrib = np.bincount(dst, weights=ranks[src] * inv[src], minlength=n)
+        ranks = (1.0 - damping) / n + damping * (contrib + ranks[dangling].sum() / n)
+    return ranks
+
+
+def plan_phase(env) -> None:
+    """WordCount through the compiled plan under hasht: the optimizer's
+    fuse_fold_kernel rewrite must send every block through kernel C."""
+    from locust_tpu_torch.config import EngineConfig
+    from locust_tpu_torch.plan import optimize, wordcount_plan
+
+    with phase("WordCount through the compiled plan: the CLI under --sort-mode hasht"):
+        applied = optimize(wordcount_plan(), EngineConfig(sort_mode="hasht")).applied
+        if applied != ("fuse_fold_kernel",):
+            raise AssertionError(f"the optimizer applied {applied} under hasht")
+        out = env.run_cli("cli_hasht", [env.corpus_file, "--sort-mode", "hasht", "--no-timing",
+                                        *env.cli_extra])
+        env.expected["cli_hasht"] = {"tokenize": 0, "bitonic_sort": 0, "fused_fold": env.nblocks}
+        if out != env.want:
+            raise AssertionError("CLI --sort-mode hasht stdout differs from the oracle")
+        log(f"  CLI --sort-mode hasht --no-timing: plan rewrites {list(applied)}, "
+            "stdout == oracle")
+        env.check_counts("cli_hasht")
+
+
+def apps_phase(env) -> dict:
+    """``index`` and ``tfidf`` over the corpus file, one document per
+    block, byte for byte against the oracle; MB/s of each app's plan run
+    over rows loaded beforehand."""
+    from locust_tpu_torch.plan import index_plan, tfidf_plan
+    from locust_tpu_torch.plan.compile import compile_plan
+
+    lpd = env.BL
+    app_mbs = {}
+    with phase(f"the apps: index and tfidf over the corpus file, --lines-per-doc {lpd}"):
+        tf, n_docs = oracle_docs(env.lines, lpd, env.W, env.E, env.K)
+        want = {"index": render_postings(tf), "tfidf": render_tfidf(tf, n_docs)}
+        log(f"  oracle: {n_docs} docs, {len(tf)} distinct (word, doc) pairs, "
+            f"{len({w for w, _ in tf})} distinct words")
+        for app, mode, sorts in (("index", "bitonic", 0), ("tfidf", "bitonic", env.nblocks)):
+            name = f"cli_{app}"
+            out = env.run_cli(name, [app, env.corpus_file, "--lines-per-doc", str(lpd),
+                                     "--sort-mode", mode, *env.cli_extra])
+            got_rows, want_rows = out.count(b"\n"), want[app].count(b"\n")
+            if out != want[app]:
+                raise AssertionError(f"{app}: stdout differs from the oracle "
+                                     f"({got_rows} vs {want_rows} rows)")
+            env.expected[name] = {"tokenize": env.nblocks, "bitonic_sort": sorts, "fused_fold": 0}
+            log(f"  {app} --sort-mode {mode}: stdout == oracle ({got_rows} rows, "
+                f"{len(out)} bytes)")
+        env.check_counts("cli_index", "cli_tfidf")
+        # Every word is in every doc here, so every score is 0: hold the
+        # tf table itself against the oracle's counts as well.
+        from locust_tpu_torch.apps.tfidf import term_doc_counts
+
+        ids = (np.arange(len(env.lines)) // lpd).astype(np.int32)
+        got_tf = term_doc_counts(env.rows, ids, env.cfg, device=env.dev)
+        if got_tf != dict(tf):
+            raise AssertionError(f"term_doc_counts differs from the oracle ({len(got_tf)} vs "
+                                 f"{len(tf)} pairs)")
+        log(f"  term_doc_counts: {len(got_tf)} (word, doc) counts == oracle")
+        for app, plan in (("index", index_plan(lpd)), ("tfidf", tfidf_plan(lpd))):
+            cp = compile_plan(plan, env.cfg, device=env.dev)
+            cp.run(env.rows[: 2 * env.BL], render=False)  # first-call warm-up
+            m, runs = env.median_s(lambda: cp.run(env.rows, render=False))
+            app_mbs[app] = env.corpus_bytes / m / 1e6
+            log(f"  {app} plan run over rows in memory, 3 runs: median {m * 1e3:.3f} ms, "
+                f"{app_mbs[app]:.3f} MB/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
+            if env.dev.type == "cuda":
+                profile_breakdown(env.torch, lambda: cp.run(env.rows[: 8 * env.BL], render=False),
+                                  f"{app} plan run, 8 blocks", 8, "block")
+    return app_mbs
+
+
+def profile_breakdown(torch, fn, what: str, n: int, unit: str) -> None:
+    """Device ops per ``unit``, the busy share of the device window and
+    the top kernels by device time, from ``torch.profiler`` over ``fn``."""
+    kern = device_events(torch, fn)
+    if not kern:
+        log(f"  {what}: the profiler recorded no device time: busy share not measured")
+        return
+    span = max(k.time_range.end for k in kern) - min(k.time_range.start for k in kern)
+    by_name = collections.Counter()
+    for k in kern:
+        by_name[k.name[:70]] += k.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    log(f"  {what}: {len(kern)} device ops ({len(kern) / n:g} per {unit}), busy "
+        f"{busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms device window: busy share {busy / span:.3f}")
+    for name, us in by_name.most_common(8):
+        log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
+
+
+def pagerank_phase(env) -> dict:
+    """``pagerank`` over a synthetic graph at web-Google's scale: the CLI
+    on the card and on the CPU, the largest |delta rank| against a
+    float64 oracle and between the two, the printed lines that differ,
+    and iterations per second."""
+    from locust_tpu_torch.apps.pagerank import pagerank
+
+    iters, damping = 20, 0.85
+    with phase("pagerank over a seeded edge list at web-Google's scale, 20 iterations"):
+        n, src, dst = synthetic_web_graph()
+        path = os.path.join(env.work, "edges.txt")
+        with open(path, "wb") as f:
+            f.write("".join(f"{a}\t{b}\n" for a, b in zip(src.tolist(), dst.tolist())).encode())
+        deg = np.bincount(src, minlength=n)
+        log(f"  {n} nodes, {len(src)} edges, {int((deg == 0).sum())} dangling nodes, "
+            f"max out-degree {int(deg.max())}, max in-degree "
+            f"{int(np.bincount(dst, minlength=n).max())}")
+        argv = ["pagerank", path, "--num-nodes", str(n), "--num-iters", str(iters)]
+        out_dev = env.run_cli("cli_pagerank", argv + env.cli_extra)
+        out_cpu = env.run_cli("cli_pagerank_cpu", argv + ["--backend", "cpu"])
+        for name in ("cli_pagerank", "cli_pagerank_cpu"):  # no kernel on this path
+            env.expected[name] = {"tokenize": 0, "bitonic_sort": 0, "fused_fold": 0}
+        rows_dev, rows_cpu = out_dev.splitlines(), out_cpu.splitlines()
+        if len(rows_dev) != n or len(rows_cpu) != n:
+            raise AssertionError(f"pagerank printed {len(rows_dev)} and {len(rows_cpu)} rows, "
+                                 f"expected {n}")
+        differ = sum(a != b for a, b in zip(rows_dev, rows_cpu))
+        r_dev = pagerank(src, dst, n, iters, damping, device=env.dev).cpu().numpy()
+        r_cpu = pagerank(src, dst, n, iters, damping, device="cpu").numpy()
+        oracle = pagerank_oracle(src, dst, n, iters, damping)
+        printed = np.array([float(r.split(b"\t")[1]) for r in rows_dev])
+        if not (np.isfinite(r_dev).all() and r_dev.shape == (n,)):
+            raise AssertionError("pagerank: ranks not finite or of the wrong shape")
+        d_oracle = float(np.abs(r_dev - oracle).max())
+        d_cpu = float(np.abs(r_dev.astype(np.float64) - r_cpu).max())
+        d_cpu_oracle = float(np.abs(r_cpu - oracle).max())
+        d_printed = float(np.abs(printed - oracle).max())
+        # float32 ranks after 20 sums over up to 10^4 in-edges: within
+        # 1e-5 of the largest rank of the float64 oracle; the printed
+        # values (the CLI's own run) as well, give or take their 8 decimals.
+        tol = 1e-5 * float(oracle.max())
+        if d_oracle > tol or d_cpu_oracle > tol or d_printed > tol + 5e-9:
+            raise AssertionError(f"pagerank: |delta| {d_oracle:.3e} (card) / {d_cpu_oracle:.3e} "
+                                 f"(CPU) / {d_printed:.3e} (printed) against the oracle, "
+                                 f"above {tol:.3e}")
+        env.check_counts("cli_pagerank", "cli_pagerank_cpu")
+        pagerank(src, dst, n, 1, damping, device=env.dev)  # warm-up
+        m, runs = env.median_s(lambda: pagerank(src, dst, n, iters, damping, device=env.dev))
+        out = {"nodes": n, "edges": int(len(src)), "iters": iters,
+               "max_abs_delta_vs_float64_oracle": d_oracle,
+               "max_abs_delta_cpu_vs_float64_oracle": d_cpu_oracle,
+               "max_abs_delta_vs_cpu_run": d_cpu, "printed_lines_differing_from_cpu": differ,
+               "max_abs_delta_printed_vs_float64_oracle": d_printed,
+               "iters_per_s": iters / m, "run_ms": m * 1e3,
+               "rank_sum": float(r_dev.astype(np.float64).sum())}
+        log(f"  card vs float64 oracle: max |delta| {d_oracle:.6e}; CPU run vs oracle "
+            f"{d_cpu_oracle:.6e}; card vs CPU run {d_cpu:.6e}; the card CLI's printed ranks "
+            f"vs oracle {d_printed:.6e} (tolerance {tol:.3e}); "
+            f"printed lines differing from the CPU CLI: {differ} of {n}; sum of ranks "
+            f"{out['rank_sum']:.9f}")
+        log(f"  pagerank on the card, 3 runs of {iters} iterations: median {m * 1e3:.3f} ms, "
+            f"{iters / m:.3f} iterations/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
+    return out
+
+
+def trace_phase(env) -> None:
+    """``--trace-out`` on WordCount (staged report, and --stream) and on
+    tfidf: each file validates against the port's schema and holds the
+    spans of its path."""
+    from locust_tpu_torch.obs.schema import validate_trace
+
+    with phase("--trace-out: WordCount, WordCount --stream and tfidf, 16 blocks"):
+        sub = env.lines[: 16 * env.BL]
+        path = os.path.join(env.work, "sub.txt")
+        with open(path, "wb") as f:
+            f.write(b"\n".join(sub) + b"\n")
+        want = b"".join(k + b"\t" + str(v).encode() + b"\n"
+                        for k, v in sorted(oracle_wordcount(sub, env.W, env.E, env.K).items()))
+        tf, n_docs = oracle_docs(sub, env.BL, env.W, env.E, env.K)
+        stage = {"plan.compile", "plan.run", "cli.load", "cli.run", "cli.output",
+                 "engine.stage.map", "engine.stage.process", "engine.stage.reduce",
+                 "engine.stage.merge"}
+        runs = (
+            ("cli_trace_wordcount", [path], want, stage,
+             {"tokenize": 16, "bitonic_sort": 32, "fused_fold": 0}),
+            ("cli_trace_stream", [path, "--stream"], want,
+             {"plan.compile", "stream.block", "stream.stall", "cli.run"},
+             {"tokenize": 16, "bitonic_sort": 16, "fused_fold": 0}),
+            ("cli_trace_tfidf", ["tfidf", path, "--lines-per-doc", str(env.BL)],
+             render_tfidf(tf, n_docs), {"plan.compile", "plan.optimize", "plan.run"},
+             {"tokenize": 16, "bitonic_sort": 16, "fused_fold": 0}),
+        )
+        for name, argv, want_out, need, counts in runs:
+            trace = os.path.join(env.work, f"{name}.trace.json")
+            out = env.run_cli(name, argv + ["--trace-out", trace, *env.cli_extra])
+            if out != want_out:
+                raise AssertionError(f"{name}: stdout differs from the oracle")
+            with open(trace, encoding="utf-8") as f:
+                doc = json.load(f)
+            validate_trace(doc)
+            names = collections.Counter(e["name"] for e in doc["traceEvents"] if e["ph"] != "M")
+            if not need <= set(names):
+                raise AssertionError(f"{name}: the trace lacks {sorted(need - set(names))}")
+            env.expected[name] = counts
+            metrics = doc["otherData"].get("metrics", {})
+            log(f"  {name}: stdout == oracle; trace validates, {sum(names.values())} "
+                f"records: {dict(sorted(names.items()))}; metrics {json.dumps(metrics)}")
+        env.check_counts(*(r[0] for r in runs))
+
+
 def main() -> int:
     import torch
 
@@ -226,6 +494,7 @@ def main() -> int:
         fused_block_preagg,
         fused_preagg_reference,
     )
+    from locust_tpu_torch.apps.inverted_index import default_pairs_capacity
     from locust_tpu_torch.config import BITONIC_TILE_BITS
     from locust_tpu_torch.ops.kernels.sort import (
         bitonic_network_reference,
@@ -320,7 +589,9 @@ def main() -> int:
         cases = [(n, kind, 9) for n in (1, 1000, 1024, 81920, 131072, 147456, 262144, 1 << 20)
                  for kind in ("dups", "equal")]
         cases += [(5000, "sentinel", 9), (147456, "sentinel", 9), (147456, "dups", 0),
-                  (tile + 1, "dups", 9), (tile + 1, "equal", 0)]
+                  (tile + 1, "dups", 9), (tile + 1, "equal", 0),
+                  # The tf fold's shape: the pair table plus a block, 10 payloads.
+                  (245760, "dups", 10), (245760, "sentinel", 10)]
         err_b = 0
         for n, kind, width in cases:
             g = torch.Generator(device=dev).manual_seed(n)
@@ -839,6 +1110,17 @@ def main() -> int:
         check_counts("cli_stage1_tsv", "cli_stage1_bin", "cli_stage2", "cli_stream_fused_ckpt",
                      "cli_auto_caps")
 
+    # ---- the plan layer, the apps, pagerank and the trace export.
+    env = types.SimpleNamespace(
+        torch=torch, dev=dev, cfg=cfg, lines=lines, rows=rows, corpus_file=corpus_file,
+        corpus_bytes=corpus_bytes, work=work.name, nblocks=nblocks, BL=BL, W=W, E=E, K=K,
+        want=want, expected=expected, run_cli=run_cli, check_counts=check_counts,
+        median_s=median_s, cli_extra=[])
+    plan_phase(env)
+    app_mbs = apps_phase(env)
+    pagerank_report = pagerank_phase(env)
+    trace_phase(env)
+
     with phase("times at the main path's shapes"):
         x = torch.from_numpy(np.ascontiguousarray(rows[:BL])).to(dev)
         # cuda_ms: events around back-to-back calls, what a caller waits
@@ -868,9 +1150,14 @@ def main() -> int:
             raise AssertionError(f"a tokenizer call is {a_ops:g} device ops, not 1")
 
         b_rows = {}
-        for n in (cfg.resolved_table_size + cfg.emits_per_block, cfg.emits_per_block):
+        # The WordCount fold's sort, a block's alone (the staged run's
+        # Process stage), and the tf fold's: the pair table plus a block
+        # of (word, doc) emits, key_lanes + 1 key lanes + the value.
+        tf_n = default_pairs_capacity(cfg) + cfg.emits_per_block
+        for n, width in ((cfg.resolved_table_size + cfg.emits_per_block, cfg.key_lanes + 1),
+                         (cfg.emits_per_block, cfg.key_lanes + 1), (tf_n, cfg.key_lanes + 2)):
             key = torch.randint(0, 2**31 - 1, (n,), device=dev, dtype=torch.int32)
-            pay = torch.randint(0, 2**31 - 1, (n, cfg.key_lanes + 1), device=dev, dtype=torch.int32)
+            pay = torch.randint(0, 2**31 - 1, (n, width), device=dev, dtype=torch.int32)
 
             def sort_kernel():
                 return bitonic_sort_rows(key, pay)
@@ -930,7 +1217,7 @@ def main() -> int:
             kb = padded_size(n).bit_length() - 1
             nbytes = 2 * n * 4 * (1 + pay.shape[1])
             b, by = bound_ms(nbytes, (padded_size(n) // 2) * kb * (kb + 1) // 2)
-            b_rows[n] = (times, b, by, per)
+            b_rows[n] = (times, b, by, per, width)
             (k_ms, k_dev), (p_ms, p_dev), (l_ms, l_dev) = times
             log(f"  bitonic n={n} (pad {padded_size(n)}) x {pay.shape[1]} payloads, "
                 f"{plan_steps(n)} plan steps in {per} CUDA launches per sort (profiler saw "
@@ -942,7 +1229,7 @@ def main() -> int:
                 f"kernel device time {_ms(k_dev)} = "
                 f"{'not measured' if k_dev is None else f'{b / k_dev:.4f} of the bound'}")
         fold_n = cfg.resolved_table_size + cfg.emits_per_block
-        ((k_ms, k_dev), (p_ms, _), (l_ms, _)), b, by, b_launches = b_rows[fold_n]
+        ((k_ms, k_dev), (p_ms, _), (l_ms, _)), b, by, b_launches, _ = b_rows[fold_n]
 
         def fused_plain():
             return fused_preagg_reference(x, cfg_f)
@@ -974,6 +1261,14 @@ def main() -> int:
                                  dtype=torch.int32)
         b_ops, _, b_own = call_profile(torch, lambda: bitonic_sort_rows(fold_key, fold_pay),
                                        "bitonic")
+        tf_key = torch.randint(0, 2**31 - 1, (tf_n,), device=dev, dtype=torch.int32)
+        tf_pay = torch.randint(0, 2**31 - 1, (tf_n, cfg.key_lanes + 2), device=dev,
+                               dtype=torch.int32)
+        tf_ops, _, tf_own = call_profile(torch, lambda: bitonic_sort_rows(tf_key, tf_pay),
+                                         "bitonic")
+        log(f"  bitonic at the tf fold's shape n={tf_n} x {cfg.key_lanes + 2} payloads: "
+            f"{tf_ops:g} device ops per call, the kernel's own {tf_own:.4f} ms "
+            f"({b_rows[tf_n][1] / tf_own:.4f} of the bound)")
 
     with phase("times of kernel C at the run_stream segment shape"):
         seg_lines = seg * BL
@@ -1074,7 +1369,15 @@ def main() -> int:
                                "ms": t[0][0],
                                "device_ms": t[0][1], "plain_ms": t[1][0], "library_ms": t[2][0],
                                "library_device_ms": t[2][1], "bound_ms": bb}
-                      for n, (t, bb, _, nl) in b_rows.items()}},
+                      for n, (t, bb, _, nl, _) in b_rows.items()},
+         "tf_fold": {"shape": f"n={tf_n} x {cfg.key_lanes + 2} payloads",
+                     "launches": by_path["cli_tfidf"]["bitonic_sort"],
+                     "cuda_launches_per_sort": b_rows[tf_n][3], "plan_steps": plan_steps(tf_n),
+                     "ms": b_rows[tf_n][0][0][0], "device_ms": b_rows[tf_n][0][0][1],
+                     "kernel_device_ms": tf_own, "device_ops_per_call": tf_ops,
+                     "plain_ms": b_rows[tf_n][0][1][0], "library_ms": b_rows[tf_n][0][2][0],
+                     "library_device_ms": b_rows[tf_n][0][2][1],
+                     "bound_ms": b_rows[tf_n][1], "bound_by": b_rows[tf_n][2]}},
         {"name": "fused_fold", "route": "cuda", "status": "ported, redesigned",
          "source": "locust_tpu_torch/csrc/fused_fold.cu",
          "replaces": "locust_tpu/ops/pallas/fused_fold.py:155",
@@ -1092,7 +1395,8 @@ def main() -> int:
                      "library_ms": cs_lib, "device_ms": cs_dev, "kernel_device_ms": cs_own,
                      "device_ops_per_call": cs_ops, "plain_device_ms": cs_plain_dev,
                      "library_device_ms": cs_lib_dev}},
-    ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs}
+    ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs, "apps_mb_s": app_mbs,
+       "pagerank": pagerank_report}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

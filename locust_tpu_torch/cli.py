@@ -22,6 +22,13 @@ goes to stderr; stdout is byte for byte the JAX CLI's in every mode and
 stage.  Runs on CUDA unless ``--backend cpu``; with no GPU it exits with
 an error.  The map goes through the tokenizer kernel and the Process
 stage defaults to the bitonic kernel (``sort_mode="bitonic"``).
+
+Stages 0 and 1 run the canonical wordcount plan through the plan
+compiler (plan/compile.py), as the JAX CLI does: under ``--sort-mode
+hasht`` its ``fuse_fold_kernel`` rewrite folds with the fused kernel.
+``--trace-out FILE`` exports the run's spans and metrics as a
+Chrome-trace timeline.  ``pagerank``, ``index`` and ``tfidf`` as the
+first argument select the subcommands of cli_apps.py.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from locust_tpu_torch import obs  # zero-overhead unless --trace-out
 from locust_tpu_torch.config import SORT_MODES
 
 STAGE_SINGLE, STAGE_MAP, STAGE_REDUCE = 0, 1, 2
@@ -89,6 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "of loading it whole")
     p.add_argument("--trace", action="store_true",
                    help="print a wall-clock span report (load/run/output) on stderr")
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="record the run's spans/events/metrics and export a "
+                        "Chrome-trace/Perfetto JSON timeline to FILE")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (default cuda; there is no silent "
                         "fallback to the CPU)")
@@ -96,7 +107,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    # The ladder's subcommands (cli_apps.py), dispatched on the first
+    # argument so the bare positional WordCount contract stays intact; a
+    # FILE literally named "pagerank" needs ./pagerank.
+    from locust_tpu_torch import cli_apps
+
+    if argv and argv[0] in cli_apps.SUBCOMMANDS:
+        return cli_apps.main(argv[0], argv[1:])
+    args = build_parser().parse_args(argv)
     from locust_tpu_torch.engine import resolve_device
 
     try:
@@ -104,11 +123,16 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
+    if args.trace_out:
+        obs.enable(process="cli")
     try:
         return _run(args, device)
     except OSError as e:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if args.trace_out:
+            cli_apps.export_trace(args.trace_out)
 
 
 def _run(args, device) -> int:
@@ -118,15 +142,12 @@ def _run(args, device) -> int:
     from locust_tpu_torch.io import loader
     from locust_tpu_torch.utils.profiling import SpanTimer
 
-    # The JAX compiler's one wordcount rewrite (plan/optimize.py
-    # fuse_fold_kernel): a "hasht" fold runs as "fused", the same table.
-    sort_mode = "fused" if args.sort_mode == "hasht" else args.sort_mode
     cfg = EngineConfig(
         block_lines=args.block_lines,
         line_width=args.line_width,
         key_width=args.key_width,
         emits_per_line=args.emits_per_line,
-        sort_mode=sort_mode,
+        sort_mode=args.sort_mode,
         use_pallas=True,
         async_checkpoint=not args.sync_checkpoint,
     )
@@ -141,7 +162,7 @@ def _run(args, device) -> int:
     rows = None
     auto_caps_fp = None  # the file's identity when measured (checked at run)
     if args.auto_caps:
-        with timer.span("load"):
+        with timer.span("load"), obs.span("cli.load"):
             if args.stream:
                 measure = loader.StreamingCorpus(
                     args.filename, cfg.line_width, cfg.block_lines,
@@ -161,10 +182,14 @@ def _run(args, device) -> int:
               f"-> key_width={cfg.key_width} emits_per_line={cfg.emits_per_line}",
               file=sys.stderr)
 
-    from locust_tpu_torch.engine import MapReduceEngine
+    # WordCount runs as a compiled PLAN: the canonical DAG (source ->
+    # tokenize -> group -> sum -> table) lowers back onto the engine, byte
+    # for byte the same table; checkpoints land at the fold boundary.
+    from locust_tpu_torch.plan import wordcount_plan
+    from locust_tpu_torch.plan.compile import compile_plan
 
-    eng = MapReduceEngine(cfg, device=device)
-    with timer.span("load"):
+    wc_plan = compile_plan(wordcount_plan(), cfg, device=device)
+    with timer.span("load"), obs.span("cli.load"):
         if args.stream:
             stream = loader.StreamingCorpus(args.filename, cfg.line_width, cfg.block_lines,
                                             args.line_start, args.line_end)
@@ -178,19 +203,26 @@ def _run(args, device) -> int:
                 rows = loader.load_rows(args.filename, cfg.line_width,
                                         args.line_start, args.line_end)
             print(f"[locust] {rows.shape[0]} lines loaded", file=sys.stderr)
-    with timer.span("run"):  # each runner ends in a device sync
+    pairs = None
+    with timer.span("run"), obs.span("cli.run"):  # each runner ends in a device sync
         if args.stream:
             kw = {}
             if args.checkpoint_dir:
                 kw = dict(checkpoint_dir=args.checkpoint_dir, every=args.checkpoint_every,
                           fingerprint=stream.fingerprint())
-            res = eng.run_stream(stream, **kw)
-        elif args.checkpoint_dir:
-            res = eng.run_checkpointed(rows, args.checkpoint_dir, every=args.checkpoint_every)
-        elif args.no_timing:
-            res = eng.run_fused(rows)
+            res = wc_plan.run_stream(stream, **kw)
         else:
-            res = eng.timed_run(rows)
+            pres = wc_plan.run(
+                rows,
+                timed=not args.no_timing,
+                render=False,
+                # The staged map node only dumps the table: skip the host
+                # finalize its output path would discard.
+                finalize=args.stage != STAGE_MAP,
+                checkpoint_dir=args.checkpoint_dir or None,
+                every=args.checkpoint_every,
+            )
+            res, pairs = pres.run_result, pres.value
     if res.stream is not None:
         print(f"[locust] stream: {res.stream}", file=sys.stderr)
     if not args.no_timing:
@@ -203,13 +235,15 @@ def _run(args, device) -> int:
         print(stages.report(), file=sys.stderr)
     if res.truncated:
         print("[locust] WARN: table capacity exceeded; tail keys dropped", file=sys.stderr)
-    with timer.span("output"):
+    with timer.span("output"), obs.span("cli.output"):
         if args.stage == STAGE_MAP:
             res.dump_intermediate(inter[0], args.inter_format)
             print(f"[locust] node {args.node_num}: intermediate written to {inter[0]}",
                   file=sys.stderr)
         else:
-            _print_table(res.to_host_pairs(), args.limit)
+            # The plan run already finalized the table; the stream path
+            # decodes here.
+            _print_table(pairs if pairs is not None else res.to_host_pairs(), args.limit)
     if args.trace:
         print(timer.report(), file=sys.stderr)
     return 0
@@ -227,7 +261,7 @@ def _reduce_stage(args, cfg, device, inter, timer) -> int:
     from locust_tpu_torch.ops.process_stage import sort_and_compact
     from locust_tpu_torch.ops.reduce_stage import segment_reduce
 
-    with timer.span("load"):
+    with timer.span("load"), obs.span("cli.load"):
         parts = [serde.read_intermediate(path, cfg.key_width) for path in inter]
         keys = np.concatenate([k for k, _ in parts])
         values = np.concatenate([v for _, v in parts])
@@ -238,10 +272,10 @@ def _reduce_stage(args, cfg, device, inter, timer) -> int:
         torch.from_numpy(values).to(device),
         torch.ones(keys.shape[0], dtype=torch.bool, device=device),
     )
-    with timer.span("run"):  # finalize_host_pairs syncs
+    with timer.span("run"), obs.span("cli.run"):  # finalize_host_pairs syncs
         table = segment_reduce(sort_and_compact(batch, cfg.sort_mode))
         pairs = finalize_host_pairs(table)
-    with timer.span("output"):
+    with timer.span("output"), obs.span("cli.output"):
         _print_table(pairs, args.limit)
     if args.trace:
         print(timer.report(), file=sys.stderr)

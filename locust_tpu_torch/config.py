@@ -205,8 +205,8 @@ class EngineConfig:
 
     Same fields, order and defaults as the JAX package's ``EngineConfig``;
     the fields that only the JAX executor reads (``map_impl``,
-    ``donate_fold``, ``trace``) are kept so that ``repr`` and
-    ``fingerprint`` agree, and a checkpoint names the same run in both.
+    ``donate_fold``) are kept so that ``repr`` and ``fingerprint``
+    agree, and a checkpoint names the same run in both.
     """
 
     # Max bytes per input line (reference KeyValue.h:9, rounded to 128).
@@ -231,6 +231,7 @@ class EngineConfig:
     async_checkpoint: bool = True
     # run_stream stages blocks through reusable (page-locked) buffers.
     stream_staging_ring: bool = True
+    # The engine enables telemetry (obs) when it is built.
     trace: bool = False
 
     def __post_init__(self):

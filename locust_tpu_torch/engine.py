@@ -22,7 +22,11 @@ crash-resumable snapshots.  Python loops stand in for the JAX package's
 the blocks' launches back to back.
 
 The engine runs on CUDA unless the caller asks for the CPU
-(``device="cpu"``); with no GPU and no explicit CPU it raises.
+(``device="cpu"``); with no GPU and no explicit CPU it raises.  It emits
+the JAX engine's telemetry (``obs``; off unless enabled, e.g. by
+``EngineConfig(trace=True)``): the ``engine.stage.*`` spans of
+``timed_run``, and ``stream.block``, ``stream.stall`` and ``ckpt.mark``
+with their metrics in ``run_stream`` and ``run_checkpointed``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from locust_tpu_torch import obs
 from locust_tpu_torch.config import DEFAULT_CONFIG, EngineConfig, fused_stream_seg_blocks
 from locust_tpu_torch.core import bytes_ops
 from locust_tpu_torch.core.kv import KVBatch
@@ -241,6 +246,12 @@ class _CheckpointPump:
 
     def mark(self, acc: KVBatch, next_block: int, overflow, max_distinct) -> None:
         t0 = time.perf_counter()
+        obs.event(
+            "ckpt.mark",
+            generation=next_block,
+            mode="async" if self._writer is not None else "sync",
+        )
+        obs.metric_inc("ckpt.marks")
         if self._writer is None:
             save_snapshot(self._path, acc, next_block, overflow, max_distinct, self._fp)
             self._sync_writes += 1
@@ -298,6 +309,11 @@ class MapReduceEngine:
         device=None,
     ):
         self.cfg = cfg
+        if cfg.trace:
+            # API-level telemetry opt-in (the CLI's --trace-out does the
+            # same enable + an export at exit); idempotent, shares one
+            # process timeline with any tracer already enabled.
+            obs.enable()
         self.device = resolve_device(device)
         self.combine = combine  # user-facing semantics (host finalize)
         # "count" lowers to emit-1 + sum so the table merge is associative.
@@ -472,23 +488,30 @@ class MapReduceEngine:
         max_distinct = torch.zeros((), dtype=torch.int32, device=self.device)
         times = StageTimes()
         for blk in self._blocks(rows):
+            # The obs spans shadow the t0..t4 boundaries (each stage's
+            # sync is inside its span), so an exported timeline and the
+            # StageTimes report agree.
             t0 = time.perf_counter()
-            kv, blk_overflow = self.map_fn(blk, cfg)
-            self._sync()
+            with obs.span("engine.stage.map"):
+                kv, blk_overflow = self.map_fn(blk, cfg)
+                self._sync()
             t1 = time.perf_counter()
-            kv = sort_and_compact(kv, mode)
-            self._sync()
+            with obs.span("engine.stage.process"):
+                kv = sort_and_compact(kv, mode)
+                self._sync()
             t2 = time.perf_counter()
-            table = segment_reduce(kv, self._combine)
-            self._sync()
+            with obs.span("engine.stage.reduce"):
+                table = segment_reduce(kv, self._combine)
+                self._sync()
             t3 = time.perf_counter()
-            acc, distinct = segment_reduce_into(
-                sort_and_compact(KVBatch.concat(acc, table), mode),
-                self._table_size,
-                self._combine,
-            )
-            max_distinct = torch.maximum(max_distinct, distinct)
-            self._sync()
+            with obs.span("engine.stage.merge"):
+                acc, distinct = segment_reduce_into(
+                    sort_and_compact(KVBatch.concat(acc, table), mode),
+                    self._table_size,
+                    self._combine,
+                )
+                max_distinct = torch.maximum(max_distinct, distinct)
+                self._sync()
             t4 = time.perf_counter()
             times.map_ms += (t1 - t0) * 1e3
             times.process_ms += (t2 - t1) * 1e3 + (t4 - t3) * 1e3
@@ -580,7 +603,12 @@ class MapReduceEngine:
             nonlocal acc, overflow, max_distinct, segments, stall_ms, last_mark
             cur_np = cur.numpy()
             cur_np[n_filled * bl:] = 0  # a partial segment's missing blocks
-            acc, seg_overflow, distinct = self.fold_block(acc, self._to_device(cur))
+            # The span covers the copy and the fold's dispatch, not device
+            # completion (that shows in the stream.stall events).
+            span_args = {"seg_blocks": n_filled} if segmented else {}
+            with obs.span("stream.block", i=end - 1,
+                          staging="ring" if ring is not None else "alloc", **span_args):
+                acc, seg_overflow, distinct = self.fold_block(acc, self._to_device(cur))
             overflow = overflow + seg_overflow
             max_distinct = torch.maximum(max_distinct, distinct)
             segments += 1
@@ -592,7 +620,10 @@ class MapReduceEngine:
                 ev = inflight.popleft()
                 if ev is not None:
                     ev.synchronize()
-                stall_ms += (time.perf_counter() - t_sync) * 1e3
+                sync_ms = (time.perf_counter() - t_sync) * 1e3
+                stall_ms += sync_ms
+                obs.event("stream.stall", block=end - 1, ms=round(sync_ms, 3))
+                obs.metric_observe("stream.stall_ms", sync_ms)
             due = end - last_mark >= every if segmented else end % every == 0
             if pump is not None and due:
                 pump.mark(acc, end, overflow, max_distinct)
@@ -621,6 +652,7 @@ class MapReduceEngine:
                 pump.close()
         self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3
+        obs.metric_inc("stream.blocks", max(0, i + 1 - start_block))
         stream = {
             "blocks": max(0, i + 1 - start_block),
             "staging_ring": ring is not None,

@@ -1,7 +1,9 @@
 """Snapshot publishing and the bounded background checkpoint writer.
 
-Port of ``locust_tpu/io/snapshot.py`` without its telemetry spans and
-fault-injection sites (those come with the port's obs and fault tiers).
+Port of ``locust_tpu/io/snapshot.py`` with its telemetry (the
+``ckpt.write`` span and the ``ckpt.publish`` and ``ckpt.skip`` events)
+and without its fault-injection sites (those come with the port's fault
+tier).
 
 * ``finalize_snapshot`` publishes a fully written temporary file with one
   atomic ``os.replace``, keeping the previous generation when asked.
@@ -19,15 +21,20 @@ import os
 import threading
 import time
 
+from locust_tpu_torch import obs
+
 logger = logging.getLogger("locust_tpu_torch")
 
 
-def finalize_snapshot(tmp: str, path: str, prev_path: str | None = None) -> None:
+def finalize_snapshot(tmp: str, path: str, prev_path: str | None = None,
+                      generation: int | None = None) -> None:
     """Publish the fully written ``tmp`` at ``path`` atomically; with
     ``prev_path``, the generation it replaces moves there first."""
     if prev_path is not None and os.path.exists(path):
         os.replace(path, prev_path)
     os.replace(tmp, path)
+    # The generation is durable from this instant.
+    obs.event("ckpt.publish", generation=generation, path=path)
 
 
 class AsyncCheckpointWriter:
@@ -45,6 +52,9 @@ class AsyncCheckpointWriter:
     it was published)."""
 
     def __init__(self, name: str = "ckpt-writer"):
+        # The tracer of the creating (fold-loop) thread: the writer's
+        # ckpt.write span lands in the same timeline as the loop's marks.
+        self._obs_tracer = obs.current()
         self._cond = threading.Condition()
         self._pending: tuple[int, object] | None = None
         self._busy = False
@@ -68,6 +78,8 @@ class AsyncCheckpointWriter:
                 raise RuntimeError("AsyncCheckpointWriter is closed")
             if self._pending is not None:
                 self._skipped += 1
+                # Latest wins: the replaced generation never lands.
+                obs.event("ckpt.skip", generation=self._pending[0], replaced_by=generation)
             self._pending = (generation, write_fn)
             self._submitted += 1
             self._latest_gen = max(self._latest_gen, generation)
@@ -124,7 +136,8 @@ class AsyncCheckpointWriter:
                 self._cond.notify_all()
             error = None
             try:
-                fn()
+                with obs.scoped(self._obs_tracer), obs.span("ckpt.write", generation=generation):
+                    fn()
             except Exception as e:  # noqa: BLE001 - relayed to the submitter
                 error = e
                 logger.warning(

@@ -34,16 +34,20 @@ def tokenize_block(lines: torch.Tensor, cfg: EngineConfig) -> TokenizeResult:
     return TokenizeResult(*tokenize_reference(lines, cfg.emits_per_line, cfg.key_width))
 
 
+def tokenize_lines(lines: torch.Tensor, cfg: EngineConfig) -> TokenizeResult:
+    """Tokenize a block through the tokenizer kernel when
+    ``cfg.use_pallas`` (a CUDA block launches it), else through the plain
+    tensor ops: the same keys, mask and overflow either way."""
+    if cfg.use_pallas:
+        return TokenizeResult(*tokenize_block_kernel(lines, cfg.emits_per_line, cfg.key_width))
+    return tokenize_block(lines, cfg)
+
+
 def wordcount_map(lines: torch.Tensor, cfg: EngineConfig) -> tuple[KVBatch, torch.Tensor]:
     """The WordCount map_fn: emit ``(token, 1)`` per token.  Returns the
     flat emit batch ``[block_lines * emits_per_line]`` and the overflow
     counter."""
-    if cfg.use_pallas:
-        keys, valid, overflow = tokenize_block_kernel(
-            lines, cfg.emits_per_line, cfg.key_width
-        )
-    else:
-        keys, valid, overflow = tokenize_block(lines, cfg)
+    keys, valid, overflow = tokenize_lines(lines, cfg)
     flat_keys = keys.reshape(-1, cfg.key_width)
     flat_valid = valid.reshape(-1)
     values = torch.ones(flat_keys.shape[0], dtype=torch.int32, device=lines.device)

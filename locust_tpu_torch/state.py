@@ -72,7 +72,7 @@ def save_snapshot(path: str, acc: KVBatch, next_block: int, overflow: torch.Tens
         max_distinct=max_distinct.cpu().numpy().astype(np.int32),
         fingerprint=np.str_(fingerprint),
     )
-    finalize_snapshot(tmp, path)
+    finalize_snapshot(tmp, path, generation=int(next_block))
 
 
 def load_jax_checkpoint(path: str, device) -> Snapshot:

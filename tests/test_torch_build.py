@@ -1,8 +1,8 @@
 """PyTorch port, the parts of the CUDA build and of ``chip_smoke.py`` that
 the CPU can check: the build is keyed by the sources, a missing CUDA
 compiler raises, the smoke script refuses to run without a GPU or without
-the package beside it, and its WordCount oracle agrees with the port's
-engine on the CPU."""
+the package beside it, and its WordCount, index, tf-idf and PageRank
+oracles agree with the port on the CPU."""
 
 import importlib.util
 import os
@@ -96,3 +96,45 @@ def test_chip_smoke_bound_names_the_larger_time():
     assert by == "bytes" and t == pytest.approx(1.0)
     t, by = smoke.bound_ms(1.0, 67e9)
     assert by == "operations" and t == pytest.approx(1.0)
+
+
+def test_chip_smoke_app_oracles_equal_the_port(tmp_path, capfdbinary):
+    """The smoke script's index/tfidf renderings and its float64 PageRank
+    agree with the port's CLI and ``pagerank`` on the CPU (small shapes,
+    documents of 7 lines, so that the scores are not all 0)."""
+    import numpy as np
+
+    from locust_tpu_torch import cli
+    from locust_tpu_torch.apps.pagerank import pagerank
+
+    smoke = _smoke_module()
+    lines = smoke.replicated_corpus(30_000)[0]
+    path = tmp_path / "c.txt"
+    path.write_bytes(b"\n".join(lines) + b"\n")
+    tf, n_docs = smoke.oracle_docs(lines, 7, 128, 20, 32)
+    for app, want in (("index", smoke.render_postings(tf)), ("tfidf", smoke.render_tfidf(tf, n_docs))):
+        assert cli.main([app, str(path), "--lines-per-doc", "7", "--block-lines", "256",
+                         "--backend", "cpu"]) == 0
+        assert capfdbinary.readouterr().out == want
+    rng = np.random.default_rng(3)
+    src, dst = rng.integers(0, 300, 2000), rng.integers(0, 300, 2000)
+    src[src % 4 == 0] = 1  # dangling nodes
+    got = pagerank(src, dst, 300, 20, 0.85, device="cpu").numpy()
+    np.testing.assert_allclose(got, smoke.pagerank_oracle(src, dst, 300, 20, 0.85), rtol=1e-5)
+
+
+def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
+    """The card has no jax: every import in the script, at any depth of
+    its functions, names the port, the standard library, numpy or torch."""
+    import ast
+
+    with open(SMOKE) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module.split(".")[0])
+    assert "locust_tpu_torch" in names and "torch" in names
+    assert not names & {"jax", "jaxlib", "locust_tpu"}, names

@@ -186,7 +186,10 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'locust_tpu.')) or m == 'locust_tpu')\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 16, names\n"
+        "assert len(names) >= 30, names\n"
+        "for sub in ('obs', 'obs.trace', 'obs.schema', 'plan', 'plan.compile', 'plan.optimize',\n"
+        "            'apps', 'apps.tfidf', 'apps.inverted_index', 'apps.pagerank', 'cli_apps'):\n"
+        "    assert 'locust_tpu_torch.' + sub in names, sub\n"
         "print('ok', len(names))\n"
     )
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
