@@ -41,7 +41,24 @@ byte against a Python oracle, with their MB/s and a profiler breakdown;
 nodes, 5,105,039 edges) on the card and on the CPU, against a float64
 oracle, with iterations per second; and ``--trace-out`` on WordCount
 (staged report and ``--stream``) and ``tfidf``, each trace validated
-against the port's schema.  The kernels' launch counters are set to 0
+against the port's schema.  Then the measurement and safety modules:
+the native reader (``csrc/ingest.cpp``, built with g++ beside the CUDA
+kernels) held byte for byte against the Python reader (``load_rows``,
+``StreamingCorpus`` blocks, ``measure_caps_stream``, ``read_tsv`` of a
+stage-1 intermediate), with ``run_stream`` and the reader alone timed
+through both; ``attributed_run`` over ``timed_run`` under bitonic, hasht
+and fused and over ``run_fused`` under fused (device families joined
+onto the Process spans; kernel B's and C's entry symbols in their
+families) and the CLI's ``--profile-dir``; ``LOCUST_DEBUG_CHECKS=1``
+``run_fused`` under bitonic and hasht; ``run_checkpointed`` crashed by an
+``io.ckpt_write`` fault plan and resumed, a crash of the background
+writer under ``run_stream``, and an ``io.checkpoint`` truncation
+followed by a clean restart; ``run_stream`` under fused and bitonic over
+a 256 MiB seeded Zipf corpus (``io/corpus.write_corpus``, cut from the
+1 GiB north star to keep the script inside its time) against a Counter
+of its words; and ``utils/roofline.summarize`` beside each MB/s, every
+utilisation from the least bytes moved and at most 100%.  The kernels'
+launch counters are set to 0
 just before each path and read just after it; each path must launch each
 kernel exactly as often as its blocks demand.  The ``kernels`` line
 reports each kernel's count on its CLI path as ``launches`` and every
@@ -55,8 +72,9 @@ block's and the tf fold's shapes, kernel C at the block shape and at the
 ``run_stream`` segment shape.
 
 Output: one line per check, the card's name and power limit, one JSON
-line with each kernel's numbers (and the MB/s of the runners and apps
-and the pagerank report), and last a JSON line
+line with each kernel's numbers (and the MB/s of the runners and apps,
+the pagerank report, the Zipf runs, the roofline rows and the
+attribution joins), and last a JSON line
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure, so the
 script exits non-zero and prints no result; it also refuses to run
 without CUDA or without the ``locust_tpu_torch`` package beside it.
@@ -66,7 +84,9 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -473,6 +493,302 @@ def trace_phase(env) -> None:
         env.check_counts(*(r[0] for r in runs))
 
 
+def native_reader_phase(env) -> None:
+    """The native reader (csrc/ingest.cpp, built with g++) against the
+    Python reader, byte for byte on the corpus file: ``load_rows``,
+    ``StreamingCorpus`` blocks and ``measure_caps_stream``; and each
+    one's ``load_rows`` MB/s."""
+    from locust_tpu_torch.io import loader
+
+    with phase("the native reader against the Python reader on the corpus file"):
+        got = {}
+        for native in (True, False):
+            t0 = time.perf_counter()
+            got[native] = loader.load_rows(env.corpus_file, env.W, use_native=native)
+            s = time.perf_counter() - t0
+            log(f"  load_rows ({'native' if native else 'Python'}): {got[native].shape[0]} rows "
+                f"in {s * 1e3:.3f} ms, {env.corpus_bytes / s / 1e6:.3f} MB/s")
+        if not (np.array_equal(got[True], got[False]) and np.array_equal(got[True], env.rows)):
+            raise AssertionError("load_rows: the native rows differ from the Python rows")
+        blocks = {n: list(loader.StreamingCorpus(env.corpus_file, env.W, env.BL, use_native=n))
+                  for n in (True, False)}
+        if len(blocks[True]) != len(blocks[False]) or not all(
+                np.array_equal(a, b) for a, b in zip(blocks[True], blocks[False])):
+            raise AssertionError("StreamingCorpus: the native blocks differ from the Python blocks")
+        caps = {n: loader.measure_caps_stream(
+            loader.StreamingCorpus(env.corpus_file, env.W, env.BL, use_native=n))
+            for n in (True, False)}
+        if caps[True] != caps[False]:
+            raise AssertionError(f"measure_caps_stream: native {caps[True]} != Python {caps[False]}")
+        log(f"  load_rows, {len(blocks[True])} StreamingCorpus blocks and measure_caps_stream "
+            f"{caps[True]}: native == Python, byte for byte")
+
+
+def read_tsv_check(path: str, key_width: int) -> int:
+    """``read_tsv`` of a stage-1 intermediate: native == Python."""
+    from locust_tpu_torch.io import serde
+
+    nk, nv = serde.read_tsv(path, key_width)
+    pk, pv = serde.read_tsv(path, key_width, use_native=False)
+    if not (np.array_equal(nk, pk) and np.array_equal(nv, pv)):
+        raise AssertionError(f"read_tsv of {path}: native differs from Python")
+    return len(nv)
+
+
+def attribution_phase(env) -> dict:
+    """``attributed_run`` over ``timed_run`` under bitonic, hasht and
+    fused, and over ``run_fused`` under fused (kernel C): no error, a
+    Process device time, the Process-stage spans annotated; kernel B's
+    and kernel C's entry symbols counted in their families; the CLI's
+    ``--profile-dir`` leaves a trace."""
+    from locust_tpu_torch import obs
+    from locust_tpu_torch.engine import MapReduceEngine
+    from locust_tpu_torch.obs.attribution import PROCESS_STAGE_SPAN, attributed_run
+    from locust_tpu_torch.utils import profiling
+
+    nb = 16
+    sub_lines = env.lines[: nb * env.BL]
+    sub = env.rows[: nb * env.BL]
+    want = sorted(oracle_wordcount(sub_lines, env.W, env.E, env.K).items())
+    families = {"sort": (profiling.SORT_OP_FRAGMENTS, profiling.FUSED_KERNEL_OP_FRAGMENTS),
+                "scatter": (profiling.SCATTER_OP_FRAGMENTS, ()),
+                "dot": (profiling.DOT_OP_FRAGMENTS, ()),
+                "kernel": (profiling.FUSED_KERNEL_OP_FRAGMENTS, ())}
+
+    def family_of(name):
+        return [f for f, (frags, excl) in families.items()
+                if profiling.family_ms({name: 1.0}, frags, excl) == 1.0]
+
+    joins = {}
+    with phase(f"attribution: attributed_run over timed_run ({nb} blocks) under bitonic, hasht "
+               "and fused, and over run_fused under fused"):
+        runs = [("timed_run", m) for m in ("bitonic", "hasht", "fused")] + [("run_fused", "fused")]
+        for runner, mode in runs:
+            eng = MapReduceEngine(dataclasses.replace(env.cfg, sort_mode=mode), device=env.dev)
+            getattr(eng, runner)(sub[: 2 * env.BL])  # warm-up, outside the capture
+            tracer = obs.enable(process="chip_smoke")
+            try:
+                res, summary, path, join = attributed_run(
+                    lambda: getattr(eng, runner)(sub),
+                    os.path.join(env.work, f"prof_{runner}_{mode}"), mode)
+                events = tracer.to_chrome()["traceEvents"]
+            finally:
+                obs.disable()
+            name = f"{runner} {mode}"
+            if "error" in join or join["process_device_ms"] is None:
+                raise AssertionError(f"attribution of {name}: {join}")
+            if res.to_host_pairs() != want:
+                raise AssertionError(f"attribution of {name}: host pairs differ from the oracle")
+            annotated = sum(1 for e in events if e["name"] == PROCESS_STAGE_SPAN
+                            and "process_family" in e.get("args", {}))
+            if runner == "timed_run" and annotated != nb:
+                raise AssertionError(f"attribution of {name}: {annotated} Process spans "
+                                     f"annotated, expected {nb}")
+            if env.dev.type == "cuda" and join["device_plane"] != "cuda":
+                raise AssertionError(f"attribution of {name}: device plane {join['device_plane']}")
+            with open(path, encoding="utf-8") as f:
+                kernels = collections.Counter(
+                    e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
+            for kname, fam in (("bitonic_", "sort"), ("fused_preagg", "kernel")):
+                for k in kernels:
+                    if kname in k and family_of(k) != [fam]:
+                        raise AssertionError(f"{k} falls in {family_of(k)}, not [{fam!r}]")
+            if env.dev.type == "cuda":
+                if (mode, runner) == ("bitonic", "timed_run") and not any(
+                        "bitonic_" in k for k in kernels):
+                    raise AssertionError("no kernel B launch in the bitonic capture")
+                if (mode, runner) == ("fused", "run_fused") and not (
+                        any("fused_preagg" in k for k in kernels) and join["kernel_device_ms"] > 0):
+                    raise AssertionError("kernel C is not in the fused capture's kernel family")
+            joins[name] = join
+            log(f"  {name}: {json.dumps(join)}; {annotated} Process spans annotated; "
+                f"{sum(kernels.values())} kernel launches in the trace")
+        trace_dir = os.path.join(env.work, "cli_profile")
+        path = os.path.join(env.work, "sub16.txt")
+        with open(path, "wb") as f:
+            f.write(b"\n".join(sub_lines) + b"\n")
+        out = env.run_cli("cli_profile_dir", [path, "--profile-dir", trace_dir, *env.cli_extra])
+        env.expected["cli_profile_dir"] = {"tokenize": nb, "bitonic_sort": 2 * nb, "fused_fold": 0}
+        if out != b"".join(k + b"\t" + str(v).encode() + b"\n" for k, v in want):
+            raise AssertionError("CLI --profile-dir: stdout differs from the oracle")
+        found = [n for n in os.listdir(trace_dir) if n.endswith(profiling.TRACE_SUFFIX)]
+        if len(found) != 1:
+            raise AssertionError(f"CLI --profile-dir left {found}")
+        summary = profiling.parse_trace(os.path.join(trace_dir, found[0]))
+        if "error" in summary:
+            raise AssertionError(f"CLI --profile-dir: {summary['error']}")
+        env.check_counts("cli_profile_dir")
+        log(f"  CLI --profile-dir: stdout == oracle; {found[0]}: plane {summary['device_plane']}, "
+            f"{summary['device_total_ms']} ms, sort {summary['sort_ms']} ms")
+    return joins
+
+
+def debug_faults_phase(env) -> None:
+    """``LOCUST_DEBUG_CHECKS=1`` over ``run_fused`` under bitonic and
+    hasht; ``run_checkpointed`` crashed by an ``io.ckpt_write`` plan and
+    resumed; a crash of the background writer under ``run_stream``; and
+    every published snapshot truncated by an ``io.checkpoint`` plan, then
+    a clean restart.  Each run oracle-exact, with its launch counts."""
+    from locust_tpu_torch.engine import MapReduceEngine
+    from locust_tpu_torch.io.loader import StreamingCorpus
+    from locust_tpu_torch.state import load_jax_checkpoint
+    from locust_tpu_torch.utils import faultplan
+
+    n = env.nblocks
+    with phase("LOCUST_DEBUG_CHECKS=1: run_fused under bitonic and hasht"):
+        os.environ["LOCUST_DEBUG_CHECKS"] = "1"
+        try:
+            for mode in ("bitonic", "hasht"):
+                eng = MapReduceEngine(dataclasses.replace(env.cfg, sort_mode=mode),
+                                      device=env.dev)
+                name = f"debug_checks_{mode}"
+                res, env.by_path[name] = env.counted(lambda: eng.run_fused(env.rows))
+                env.expected[name] = {"tokenize": n, "bitonic_sort": n if mode == "bitonic" else 0,
+                                      "fused_fold": 0}
+                env.check_pairs(name, res, env.oracle)
+                log(f"  {name}: the table passed validate_batch; pairs == oracle")
+        finally:
+            del os.environ["LOCUST_DEBUG_CHECKS"]
+        env.check_counts("debug_checks_bitonic", "debug_checks_hasht")
+
+    with phase("fault plans: io.ckpt_write crash then resume; writer crash under run_stream; "
+               "io.checkpoint truncate then clean restart"):
+        eng = MapReduceEngine(dataclasses.replace(env.cfg, async_checkpoint=False),
+                              device=env.dev)
+        ck = os.path.join(env.work, "fault_crash")
+        plan = faultplan.FaultPlan(
+            [{"site": "io.ckpt_write", "action": "crash", "after": 3, "times": 1}], seed=7)
+        with faultplan.active_plan(plan):
+            try:
+                eng.run_checkpointed(env.rows, ck, every=8)
+            except faultplan.FaultCrash as e:
+                log(f"  run_checkpointed under the crash plan: {e}")
+            else:
+                raise AssertionError("the io.ckpt_write crash did not stop run_checkpointed")
+        start = load_jax_checkpoint(os.path.join(ck, "state.npz"), "cpu").next_block
+        res, env.by_path["fault_resumed"] = env.counted(
+            lambda: eng.run_checkpointed(env.rows, ck, every=8))
+        env.check_pairs("fault_resumed", res, env.oracle)
+        env.expected["fault_resumed"] = {"tokenize": n - start, "bitonic_sort": n - start,
+                                         "fused_fold": 0}
+        if start != 24:
+            raise AssertionError(f"the surviving snapshot is at block {start}, expected 24")
+        log(f"  resumed from the surviving snapshot at block {start}: pairs == oracle")
+
+        fe = MapReduceEngine(dataclasses.replace(env.cfg, sort_mode="fused"), device=env.dev)
+        stream = StreamingCorpus(env.corpus_file, env.W, env.BL)
+        plan = faultplan.FaultPlan([{"site": "io.ckpt_write", "action": "crash", "times": 1}],
+                                   seed=7)
+        with faultplan.active_plan(plan):
+            res = fe.run_stream(stream, checkpoint_dir=os.path.join(env.work, "fault_async"),
+                                every=8, fingerprint=stream.fingerprint())
+        env.check_pairs("run_stream under a writer crash", res, env.oracle)
+        if res.stream["ckpt"]["abandoned"] != 1 or plan.rules[0].fired != 1:
+            raise AssertionError(f"run_stream writer crash: {res.stream['ckpt']}")
+        log(f"  run_stream (fused) with the background writer crashed once: pairs == oracle, "
+            f"checkpoint {json.dumps(res.stream['ckpt'])}")
+
+        ck = os.path.join(env.work, "fault_truncate")
+        plan = faultplan.FaultPlan([{"site": "io.checkpoint", "action": "truncate"}], seed=7)
+        with faultplan.active_plan(plan):
+            res = eng.run_checkpointed(env.rows, ck, every=8)
+        env.check_pairs("run_checkpointed under the truncate plan", res, env.oracle)
+        res, env.by_path["fault_truncated_restart"] = env.counted(
+            lambda: eng.run_checkpointed(env.rows, ck, every=8))
+        env.check_pairs("fault_truncated_restart", res, env.oracle)
+        env.expected["fault_truncated_restart"] = {"tokenize": n, "bitonic_sort": n,
+                                                   "fused_fold": 0}
+        log(f"  io.checkpoint truncated {plan.rules[0].fired} published snapshots: pairs == "
+            "oracle; the rerun started afresh: pairs == oracle")
+        env.check_counts("fault_resumed", "fault_truncated_restart")
+
+
+ZIPF_BYTES = 256 << 20
+
+
+def zipf_phase(env) -> dict:
+    """``run_stream`` under fused and bitonic over a seeded Zipf corpus
+    (``io/corpus.write_corpus``: seed 0, 30,000 words, exponent 1.1, 10
+    words of 7 bytes a line) of ``ZIPF_BYTES``, exact against a Counter
+    of the file's words; MB/s, flagged re-folds and peak device memory."""
+    from locust_tpu_torch.engine import MapReduceEngine
+    from locust_tpu_torch.io.corpus import write_corpus
+    from locust_tpu_torch.io.loader import StreamingCorpus
+
+    out = {}
+    with phase(f"the Zipf corpus: {ZIPF_BYTES >> 20} MiB (cut from the 1 GiB north star to keep "
+               "this script inside its time), run_stream under fused and bitonic"):
+        path = os.path.join(env.work, "zipf.txt")
+        t0 = time.perf_counter()
+        nbytes = write_corpus(path, ZIPF_BYTES, seed=0, n_vocab=30_000, zipf=1.1)
+        gen_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            data = f.read()
+        n_lines = data.count(b"\n")
+        if len(data) != 80 * n_lines:  # 10 words of 7 bytes, 9 spaces, a newline
+            raise AssertionError("the Zipf corpus has a line that is not 10 words of 7 bytes")
+        want = sorted(collections.Counter(data.split()).items())
+        del data
+        nblocks = -(-n_lines // env.BL)
+        log(f"  write_corpus: {nbytes} bytes, {n_lines} lines, {nblocks} blocks, {len(want)} "
+            f"distinct words in {gen_s:.3f} s")
+        for mode in ("fused", "bitonic"):
+            eng = MapReduceEngine(dataclasses.replace(env.cfg, sort_mode=mode), device=env.dev)
+            eng.run_fused(env.rows[: 2 * env.BL])  # warm-up
+            if env.dev.type == "cuda":
+                env.torch.cuda.reset_peak_memory_stats()
+            name = f"zipf_run_stream_{mode}"
+            t0 = time.perf_counter()
+            res, env.by_path[name] = env.counted(
+                lambda: eng.run_stream(StreamingCorpus(path, env.W, env.BL)))
+            s = time.perf_counter() - t0
+            peak = (env.torch.cuda.max_memory_allocated() / 2**20
+                    if env.dev.type == "cuda" else None)
+            env.check_pairs(name, res, want)
+            if mode == "fused":
+                seg = eng._fused_stream_seg
+                env.expected[name] = {"tokenize": res.fused_refolds, "bitonic_sort": 0,
+                                      "fused_fold": -(-nblocks // seg)}
+            else:
+                env.expected[name] = {"tokenize": nblocks, "bitonic_sort": nblocks,
+                                      "fused_fold": 0}
+            out[mode] = {"mb_s": nbytes / s / 1e6, "s": s, "fused_refolds": res.fused_refolds,
+                         "peak_device_mib": peak, "blocks": nblocks}
+            log(f"  {name}: {len(want)} distinct keys == Counter of the file; {s * 1e3:.3f} ms, "
+                f"{nbytes / s / 1e6:.3f} MB/s; flagged re-folds {res.fused_refolds}; peak "
+                f"device memory {'not measured' if peak is None else f'{peak:.1f} MiB'}; "
+                f"stream {json.dumps(res.stream)}")
+        env.check_counts("zipf_run_stream_fused", "zipf_run_stream_bitonic")
+        os.remove(path)
+    return out
+
+
+def roofline_rows(env, mode_mbs: dict, stream_mbs: dict, device_kind: str) -> dict:
+    """``utils/roofline.summarize`` beside every ``run_fused`` MB/s and
+    ``run_stream`` under fused; none may read above 100% of the peak
+    (``summarize`` raises)."""
+    from locust_tpu_torch.utils import roofline
+
+    rows = {}
+    cfg = env.cfg
+    for mode, mbs in sorted(mode_mbs.items()):
+        rows[f"run_fused_{mode}"] = roofline.summarize(
+            mode, cfg.key_lanes, cfg.emits_per_block, cfg.resolved_table_size, env.nblocks,
+            env.corpus_bytes / (mbs * 1e6), device_kind, cfg.block_lines, cfg.line_width)
+    rows["run_stream_fused"] = roofline.summarize(
+        "fused", cfg.key_lanes, cfg.emits_per_block, cfg.resolved_table_size, env.nblocks,
+        env.corpus_bytes / (stream_mbs["fused"] * 1e6), device_kind, cfg.block_lines,
+        cfg.line_width, fused_variant="stream")
+    for name, r in rows.items():
+        if r["hbm_utilization_pct"] is not None and r["hbm_utilization_pct"] > 100:
+            raise AssertionError(f"{name}: {r['hbm_utilization_pct']}% of the peak")
+        log(f"  roofline {name}: least bytes {r['min_bytes']} at {r['achieved_min_gb_s']} GB/s = "
+            f"{r['hbm_utilization_pct']}% of {r['hbm_peak_gb_s']} GB/s; the TPU model's sort "
+            f"traffic {r['est_sort_traffic_gb']} GB ({r['sort_passes']} passes, "
+            f"{r['achieved_sort_gb_s']} GB/s on it)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -490,6 +806,7 @@ def main() -> int:
     from locust_tpu_torch.io import serde
     from locust_tpu_torch.io.loader import StreamingCorpus
     from locust_tpu_torch.state import load_jax_checkpoint
+    from locust_tpu_torch.utils import roofline
     from locust_tpu_torch.ops.kernels.fused_fold import (
         fused_block_preagg,
         fused_preagg_reference,
@@ -524,11 +841,15 @@ def main() -> int:
         log(f"nvidia-smi: {smi}")
         log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    with phase("build kernels"):
+    with phase("build kernels (nvcc) and the native reader (g++)"):
         shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
         t0 = time.perf_counter()
-        reports = _build.build()
-        log(f"built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            host = pool.submit(_build.build_host)
+            reports = _build.build()
+            host.result()
+        log(f"built {sorted(reports)} and {list(_build.HOST_SOURCES)} "
+            f"({_build.library_path('ingest').name}) in {time.perf_counter() - t0:.2f} s")
         for name, report in sorted(reports.items()):
             for line in report.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
@@ -908,8 +1229,8 @@ def main() -> int:
             runs.append(time.perf_counter() - t0)
         return float(np.median(runs)), runs
 
-    def stream_of_corpus():
-        return StreamingCorpus(corpus_file, W, BL)
+    def stream_of_corpus(use_native=True):
+        return StreamingCorpus(corpus_file, W, BL, use_native=use_native)
 
     with phase("the torch.sort modes through run_fused over the replicated corpus"):
         sort_modes = ("lex", "hash", "hashp", "hashp2", "hash1", "radix")
@@ -934,7 +1255,10 @@ def main() -> int:
     seg = fe._fused_stream_seg
     nseg = -(-nblocks // seg)
     stream_mbs = {}
-    with phase("run_stream over a StreamingCorpus of the corpus file: fused, then bitonic"):
+    native_reader_phase(types.SimpleNamespace(corpus_file=corpus_file, W=W, BL=BL, rows=rows,
+                                              corpus_bytes=corpus_bytes, median_s=median_s))
+    with phase("run_stream over a StreamingCorpus of the corpus file (the native reader): "
+               "fused, then bitonic"):
         sres, by_path["run_stream_fused"] = counted(lambda: fe.run_stream(stream_of_corpus()))
         check_pairs("run_stream_fused", sres, oracle)
         fs = sres.stream["fused"]
@@ -972,10 +1296,18 @@ def main() -> int:
             stream_mbs[mode] = corpus_bytes / m / 1e6
             log(f"  run_stream under {mode}, 3 runs: median {m * 1e3:.3f} ms, "
                 f"{stream_mbs[mode]:.3f} MB/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
-        # What the stream is waiting for: the host reader alone, and the
-        # fold loop over blocks read beforehand.
+        # The same runs through the Python reader (use_native=False).
+        for mode, e in (("fused", fe), ("bitonic", eng)):
+            m, runs = median_s(lambda: e.run_stream(stream_of_corpus(use_native=False)))
+            stream_mbs[f"{mode}_python_reader"] = corpus_bytes / m / 1e6
+            log(f"  run_stream under {mode} through the Python reader, 3 runs: median "
+                f"{m * 1e3:.3f} ms, {stream_mbs[f'{mode}_python_reader']:.3f} MB/s")
+        # What the stream is waiting for: the host reader alone (native,
+        # then Python), and the fold loop over blocks read beforehand.
         m, runs = median_s(lambda: sum(1 for _ in stream_of_corpus()))
         stream_mbs["reader_alone"] = corpus_bytes / m / 1e6
+        m, runs = median_s(lambda: sum(1 for _ in stream_of_corpus(use_native=False)))
+        stream_mbs["reader_alone_python"] = corpus_bytes / m / 1e6
         held = list(stream_of_corpus())
         for mode, e in (("fused", fe), ("bitonic", eng)):
             m, runs = median_s(lambda: e.run_stream(iter(held)))
@@ -1095,6 +1427,8 @@ def main() -> int:
             raise AssertionError("the staged CLI's stdout differs from the oracle")
         log(f"  stage 1 over [0, {half}) ({n1} blocks, tsv) and [{half}, end) ({n2} blocks, "
             f"bin), stage 2 over both ({len(half_oracle) + len(values_b)} pairs): stdout == oracle")
+        log(f"  read_tsv of the stage-1 tsv ({read_tsv_check(part_t, K)} pairs): "
+            "native == Python")
         out4 = run_cli("cli_stream_fused_ckpt", [
             corpus_file, "--stream", "--checkpoint-dir", os.path.join(work.name, "cli_ckpt"),
             "--sort-mode", "fused", "--no-timing"])
@@ -1115,11 +1449,15 @@ def main() -> int:
         torch=torch, dev=dev, cfg=cfg, lines=lines, rows=rows, corpus_file=corpus_file,
         corpus_bytes=corpus_bytes, work=work.name, nblocks=nblocks, BL=BL, W=W, E=E, K=K,
         want=want, expected=expected, run_cli=run_cli, check_counts=check_counts,
-        median_s=median_s, cli_extra=[])
+        median_s=median_s, cli_extra=[], counted=counted, by_path=by_path, oracle=oracle,
+        check_pairs=check_pairs)
     plan_phase(env)
     app_mbs = apps_phase(env)
     pagerank_report = pagerank_phase(env)
     trace_phase(env)
+    attribution = attribution_phase(env)
+    debug_faults_phase(env)
+    zipf_report = zipf_phase(env)
 
     with phase("times at the main path's shapes"):
         x = torch.from_numpy(np.ascontiguousarray(rows[:BL])).to(dev)
@@ -1141,7 +1479,8 @@ def main() -> int:
         a_ops, a_dev, a_own = call_profile(torch, tok_kernel, "tokenize_kernel")
         a_plain_dev = device_ms(torch, tok_plain)
         # In: the block; out: keys, valid and the overflow total.
-        a_bound, a_by = bound_ms(BL * W + BL * E * K + BL * E + 4, BL * W)
+        a_bound, a_by = bound_ms(roofline.tokenize_min_bytes(BL, W, E, K),
+                                 roofline.tokenize_min_ops(BL, W))
         log(f"  tokenizer [{BL},{W}] E={E} K={K}: kernel {a_ms:.4f} ms, {a_ops:g} device ops "
             f"per call, device {a_dev:.4f} ms, the kernel's own {a_own:.4f} ms "
             f"({a_bound / a_own:.4f} of the bound); plain {a_plain:.4f} ms (device "
@@ -1214,9 +1553,8 @@ def main() -> int:
             if per < 1 or (seen and seen != per):
                 raise AssertionError(f"bitonic n={n}: the profiler saw {seen} kernel launches "
                                      f"per sort, the wrapper reports {per}")
-            kb = padded_size(n).bit_length() - 1
-            nbytes = 2 * n * 4 * (1 + pay.shape[1])
-            b, by = bound_ms(nbytes, (padded_size(n) // 2) * kb * (kb + 1) // 2)
+            b, by = bound_ms(roofline.bitonic_min_bytes(n, pay.shape[1]),
+                             roofline.bitonic_min_ops(n))
             b_rows[n] = (times, b, by, per, width)
             (k_ms, k_dev), (p_ms, p_dev), (l_ms, l_dev) = times
             log(f"  bitonic n={n} (pad {padded_size(n)}) x {pay.shape[1]} payloads, "
@@ -1246,8 +1584,11 @@ def main() -> int:
         tab, res, _, _ = fused_kernel()
         # In: the block; out: lanes, count and valid of every table and
         # residual row, the overflow and the flag.
-        c_bytes = BL * W + (tab.size + res.size) * (K + 5) + 5
-        c_bound, c_by = bound_ms(c_bytes, BL * W)
+        c_bytes = roofline.fused_min_bytes(BL, W, K)
+        if c_bytes != BL * W + (tab.size + res.size) * (K + 5) + 5:
+            raise AssertionError(f"kernel C wrote {tab.size} + {res.size} rows, not the "
+                                 "rows utils/roofline.py counts")
+        c_bound, c_by = bound_ms(c_bytes, roofline.fused_min_ops(BL, W))
         log(f"  fused pre-aggregation [{BL},{W}] E={E} K={K}, {tab.size} table + {res.size} "
             f"residual rows: kernel {c_ms:.4f} ms, {c_ops:g} device ops per call, device "
             f"{c_dev:.4f} ms, the kernel's own {c_own:.4f} ms ({c_bound / c_own:.4f} of the "
@@ -1291,8 +1632,11 @@ def main() -> int:
         tab_s, res_s, _, _ = seg_kernel()
         # In: the segment's lines; out: every table and residual row
         # (lanes, count, valid), the overflow and the flag.
-        cs_bytes = seg_lines * W + (tab_s.size + res_s.size) * (K + 5) + 5
-        cs_bound, cs_by = bound_ms(cs_bytes, seg_lines * W)
+        cs_bytes = roofline.fused_min_bytes(seg_lines, W, K)
+        if cs_bytes != seg_lines * W + (tab_s.size + res_s.size) * (K + 5) + 5:
+            raise AssertionError(f"kernel C wrote {tab_s.size} + {res_s.size} rows at the "
+                                 "segment shape, not the rows utils/roofline.py counts")
+        cs_bound, cs_by = bound_ms(cs_bytes, roofline.fused_min_ops(seg_lines, W))
         log(f"  fused pre-aggregation [{seg_lines},{W}] E={E} K={K} ({seg} blocks, "
             f"{seg_lines // 32} tiles), {tab_s.size} table + {res_s.size} residual rows: kernel "
             f"{cs_ms:.4f} ms, {cs_ops:g} device ops per call, device {cs_dev:.4f} ms, the "
@@ -1324,23 +1668,49 @@ def main() -> int:
             for name, us in by_name.most_common(12):
                 log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
 
-    with phase(f"where the device time goes: torch.profiler over run_stream under fused, "
-               f"{nblocks} blocks in {nseg} segments"):
-        kern = device_events(torch, lambda: fe.run_stream(stream_of_corpus()))
-        if not kern:
-            log("  the profiler recorded no device time: busy share not measured")
-        else:
-            span = max(k.time_range.end for k in kern) - min(k.time_range.start for k in kern)
-            by_name = collections.Counter()
-            for k in kern:
-                by_name[k.name[:70]] += k.time_range.elapsed_us()
-            busy = sum(by_name.values())
-            c_us = sum(us for name, us in by_name.items() if "fused_preagg" in name)
-            log(f"  {len(kern)} device ops ({len(kern) / nseg:g} per segment), busy "
-                f"{busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms device window: busy share "
-                f"{busy / span:.3f}; kernel C {c_us / 1e3:.3f} ms = {c_us / busy:.1%} of busy")
-            for name, us in by_name.most_common(12):
-                log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
+    stream_busy = {}
+    for mode, e, n, unit, kname in (("fused", fe, nseg, "segment", "fused_preagg"),
+                                    ("bitonic", eng, nblocks, "block", "bitonic")):
+        for reader in ("native", "python"):
+            with phase(f"where the device time goes: torch.profiler over run_stream under {mode} "
+                       f"through the {reader} reader, {nblocks} blocks"):
+                kern = device_events(torch, lambda: e.run_stream(
+                    stream_of_corpus(use_native=reader == "native")))
+                if not kern:
+                    log("  the profiler recorded no device time: busy share not measured")
+                    continue
+                span = max(k.time_range.end for k in kern) - min(k.time_range.start for k in kern)
+                by_name = collections.Counter()
+                for k in kern:
+                    by_name[k.name[:70]] += k.time_range.elapsed_us()
+                busy = sum(by_name.values())
+                stream_busy[f"{mode}_{reader}"] = busy / span
+                k_us = sum(us for name, us in by_name.items() if kname in name)
+                log(f"  {len(kern)} device ops ({len(kern) / n:g} per {unit}), busy "
+                    f"{busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms device window: busy share "
+                    f"{busy / span:.3f}; {kname} {k_us / 1e3:.3f} ms = {k_us / busy:.1%} of busy")
+                for name, us in by_name.most_common(8):
+                    log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name}")
+    log(f"  run_stream busy share of the device window: {json.dumps(stream_busy)}")
+    with phase("roofline: utils/roofline.summarize beside each MB/s; the kernels' "
+               "least-bytes utilisation"):
+        kind = torch.cuda.get_device_name(0)
+        roof = roofline_rows(env, mode_mbs, stream_mbs, kind)
+        peak = roofline.PEAK_HBM_GB_S.get(kind)
+        kernel_util = {}
+        for name, nbytes, own in (
+                ("tokenize", roofline.tokenize_min_bytes(BL, W, E, K), a_own),
+                ("bitonic_sort", roofline.bitonic_min_bytes(fold_n, cfg.key_lanes + 1), b_own),
+                ("bitonic_sort_tf_fold", roofline.bitonic_min_bytes(tf_n, cfg.key_lanes + 2),
+                 tf_own),
+                ("fused_fold", c_bytes, c_own), ("fused_fold_segment", cs_bytes, cs_own)):
+            pct = None if peak is None else 100.0 * nbytes / (own / 1e3) / (peak * 1e9)
+            if pct is not None and pct > 100:
+                raise AssertionError(f"{name}: {pct:.2f}% of the peak from {nbytes} bytes in "
+                                     f"{own} ms")
+            kernel_util[name] = pct
+            log(f"  {name}: {nbytes} least bytes in the kernel's own {own:.4f} ms = "
+                f"{'not measured' if pct is None else f'{pct:.3f}%'} of {peak} GB/s")
     work.cleanup()
 
     log(f"card: {smi}")
@@ -1395,8 +1765,15 @@ def main() -> int:
                      "library_ms": cs_lib, "device_ms": cs_dev, "kernel_device_ms": cs_own,
                      "device_ops_per_call": cs_ops, "plain_device_ms": cs_plain_dev,
                      "library_device_ms": cs_lib_dev}},
-    ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs, "apps_mb_s": app_mbs,
-       "pagerank": pagerank_report}
+    ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs,
+       "run_stream_busy_share": stream_busy, "apps_mb_s": app_mbs,
+       "pagerank": pagerank_report, "zipf_run_stream": zipf_report,
+       "kernel_hbm_utilization_pct": kernel_util,
+       "roofline": {k: {f: r[f] for f in ("min_bytes", "achieved_min_gb_s", "hbm_utilization_pct",
+                                          "est_sort_traffic_gb", "achieved_sort_gb_s",
+                                          "sort_passes")}
+                    for k, r in roof.items()},
+       "attribution": attribution}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

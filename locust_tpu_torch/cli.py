@@ -27,7 +27,10 @@ Stages 0 and 1 run the canonical wordcount plan through the plan
 compiler (plan/compile.py), as the JAX CLI does: under ``--sort-mode
 hasht`` its ``fuse_fold_kernel`` rewrite folds with the fused kernel.
 ``--trace-out FILE`` exports the run's spans and metrics as a
-Chrome-trace timeline.  ``pagerank``, ``index`` and ``tfidf`` as the
+Chrome-trace timeline; ``--profile-dir DIR`` captures a ``torch.profiler``
+trace of the run into DIR.  ``--fault-plan`` (or ``$LOCUST_FAULT_PLAN``)
+installs a seeded fault plan (utils/faultplan.py) before any checkpoint
+is written.  ``pagerank``, ``index`` and ``tfidf`` as the
 first argument select the subcommands of cli_apps.py.
 """
 
@@ -100,6 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-out", default=None, metavar="FILE",
                    help="record the run's spans/events/metrics and export a "
                         "Chrome-trace/Perfetto JSON timeline to FILE")
+    p.add_argument("--fault-plan", default=None,
+                   help="fault injection plan: JSON text or a path to a JSON file (also "
+                        "$LOCUST_FAULT_PLAN); no cost when unset")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the run (CPU ops, CUDA kernels) "
+                        "into this directory as a Chrome-trace JSON")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (default cuda; there is no silent "
                         "fallback to the CPU)")
@@ -125,22 +134,28 @@ def main(argv=None) -> int:
         return 1
     if args.trace_out:
         obs.enable(process="cli")
+    from locust_tpu_torch.utils import faultplan
+
+    plan = None
     try:
+        # The plan is live before any checkpoint write it is meant to hit.
+        plan = faultplan.install(args.fault_plan)
         return _run(args, device)
     except OSError as e:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
     finally:
+        if plan is not None:
+            faultplan.deactivate()
         if args.trace_out:
             cli_apps.export_trace(args.trace_out)
 
 
 def _run(args, device) -> int:
-    import dataclasses
+    import contextlib
 
     from locust_tpu_torch.config import EngineConfig
-    from locust_tpu_torch.io import loader
-    from locust_tpu_torch.utils.profiling import SpanTimer
+    from locust_tpu_torch.utils.profiling import SpanTimer, device_trace
 
     cfg = EngineConfig(
         block_lines=args.block_lines,
@@ -153,8 +168,23 @@ def _run(args, device) -> int:
     )
     timer = SpanTimer()
     inter = args.intermediate or [DEFAULT_INTERMEDIATE]
-    if args.stage == STAGE_REDUCE:
-        return _reduce_stage(args, cfg, device, inter, timer)
+    prof = device_trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    with prof:
+        if args.stage == STAGE_REDUCE:
+            rc = _reduce_stage(args, cfg, device, inter, timer)
+        else:
+            rc = _fold_stage(args, cfg, device, inter, timer)
+    if args.profile_dir:
+        print(f"[locust] profiler trace written to {args.profile_dir}", file=sys.stderr)
+    return rc
+
+
+def _fold_stage(args, cfg, device, inter, timer) -> int:
+    """Stages 0 and 1: load (or stream) the slice and fold it."""
+    import dataclasses
+
+    from locust_tpu_torch.io import loader
+    from locust_tpu_torch.utils.profiling import SpanTimer
 
     # --auto-caps: measure once, shrink key_width / emits_per_line to
     # their lossless floors; table_size stays the flags' resolution so the

@@ -43,7 +43,12 @@ import numpy as np
 import torch
 
 from locust_tpu_torch import obs
-from locust_tpu_torch.config import DEFAULT_CONFIG, EngineConfig, fused_stream_seg_blocks
+from locust_tpu_torch.config import (
+    DEFAULT_CONFIG,
+    HASHT_FAMILY,
+    EngineConfig,
+    fused_stream_seg_blocks,
+)
 from locust_tpu_torch.core import bytes_ops
 from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.io.loader import prefetch_blocks
@@ -61,6 +66,7 @@ from locust_tpu_torch.ops.reduce_stage import (
     segment_reduce_into,
 )
 from locust_tpu_torch.state import load_jax_checkpoint, save_snapshot
+from locust_tpu_torch.utils.checks import validate_batch
 
 logger = logging.getLogger("locust_tpu_torch")
 
@@ -765,6 +771,11 @@ class MapReduceEngine:
 
     def _finish(self, acc, num_segments, overflow, times, refolds: int = 0,
                 stream: dict | None = None, fused_kernel: str | None = None) -> RunResult:
+        if os.environ.get("LOCUST_DEBUG_CHECKS"):
+            # Opt-in invariant sweep of the result table: NUL-padded keys,
+            # and the valid-prefix layout of the sort folds (the hasht
+            # family's tables are slot-ordered, not compacted).
+            validate_batch(acc, expect_compact=self.cfg.sort_mode not in HASHT_FAMILY)
         num = int(num_segments)
         truncated = num > acc.size
         if truncated:

@@ -3,8 +3,12 @@
 Port of ``locust_tpu/io/loader.py``: the ``[line_start, line_end)``
 node-shard slice, the lossless capacity sizing behind ``--auto-caps``,
 the prefetching reader thread and ``StreamingCorpus``, the bounded-memory
-block reader behind ``--stream``.  The JAX package's native C++ ingest is
-not ported: these are its pure-Python paths, whose output it equals.
+block reader behind ``--stream``.  ``load_rows``, ``StreamingCorpus`` and
+``measure_caps_stream`` read through the native reader
+(``io/native_ingest.py``, ``csrc/ingest.cpp``) by default; the pure-Python
+paths, whose output it equals byte for byte, run only when the caller
+passes ``use_native=False``.  Unlike the JAX package, a native reader that
+fails to build raises ``OSError``: there is no silent fallback.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 
 from locust_tpu_torch.config import FULL_DELIMITERS
 from locust_tpu_torch.core import bytes_ops
+from locust_tpu_torch.io import native_ingest
 
 # The engine's token boundaries: the strtok set plus NUL and CR/LF.
 _TOKEN_SPLIT = re.compile(b"[" + re.escape(FULL_DELIMITERS) + b"]+")
@@ -45,8 +50,11 @@ def load_lines(path: str, line_start: int = -1, line_end: int = -1) -> list[byte
 
 
 def load_rows(path: str, line_width: int, line_start: int = -1,
-              line_end: int = -1) -> np.ndarray:
-    """File -> padded ``[lines, line_width]`` uint8 rows."""
+              line_end: int = -1, use_native: bool = True) -> np.ndarray:
+    """File -> padded ``[lines, line_width]`` uint8 rows, through the
+    native reader unless ``use_native=False``."""
+    if use_native:
+        return native_ingest.load_rows(path, line_width, line_start, line_end)
     return bytes_ops.strings_to_rows(
         load_lines(path, line_start, line_end), line_width
     )
@@ -119,8 +127,11 @@ def measure_caps_rows(row_blocks) -> tuple[int, int]:
 
 def measure_caps_stream(stream: "StreamingCorpus") -> tuple[int, int]:
     """Caps of a ``StreamingCorpus``'s width-truncated ``[line_start,
-    line_end)`` view, block by block (the JAX package's native scan is
-    not ported; it measures the same)."""
+    line_end)`` view: the native single-pass scan, or, when the stream
+    has ``use_native=False``, ``measure_caps_rows`` over its blocks."""
+    if stream.use_native:
+        return native_ingest.measure_caps(stream.path, stream.line_width,
+                                          stream.line_start, stream.line_end)
     return measure_caps_rows(stream)
 
 
@@ -213,10 +224,13 @@ class StreamingCorpus:
     time, honouring the ``[line_start, line_end)`` slice.  Every block but
     the last has ``block_lines`` rows.  A line longer than the window is
     cut to ``line_width`` (the device contract anyway).  ``fingerprint()``
-    is the file's identity for checkpoint resume, without a full read."""
+    is the file's identity for checkpoint resume, without a full read.
+    Blocks come from the native windowed scanner (a 1 MB buffer) unless
+    ``use_native=False``, which takes the Python chunked reader."""
 
     def __init__(self, path: str, line_width: int, block_lines: int,
-                 line_start: int = -1, line_end: int = -1, chunk_bytes: int = 32 << 20):
+                 line_start: int = -1, line_end: int = -1, chunk_bytes: int = 32 << 20,
+                 use_native: bool = True):
         if block_lines < 1 or line_width < 1:
             raise ValueError("block_lines and line_width must be >= 1")
         self.path = path
@@ -225,6 +239,7 @@ class StreamingCorpus:
         self.line_start = line_start
         self.line_end = line_end
         self.chunk_bytes = max(chunk_bytes, 1 << 16)
+        self.use_native = use_native
 
     def fingerprint(self) -> str:
         """Path + size + mtime + a digest of the first MiB + the slice,
@@ -239,6 +254,15 @@ class StreamingCorpus:
         )
 
     def __iter__(self):
+        if self.use_native:
+            # An error after a block was yielded propagates: reading the
+            # file again from the top would fold every block twice.
+            yield from native_ingest.iter_blocks(self.path, self.line_width, self.block_lines,
+                                                 self.line_start, self.line_end)
+            return
+        yield from self._iter_python()
+
+    def _iter_python(self):
         start = max(self.line_start, 0)
         end = self.line_end if self.line_end >= 0 else None
         line_no = 0

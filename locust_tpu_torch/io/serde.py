@@ -12,8 +12,10 @@ the JAX writer's.  Two intermediate formats:
   ``np.frombuffer``.
 
 ``read_intermediate`` sniffs the magic per file, so mixed inputs reduce.
-The JAX package's native TSV parser is not ported; this pure-Python
-parser is its semantic reference.  ``write_npz``/``read_npz`` store a
+``read_tsv`` parses through the native reader (``csrc/ingest.cpp``) for
+keys up to 256 bytes, and through the pure-Python parser, its semantic
+reference, for wider keys or when the caller passes ``use_native=False``.
+``write_npz``/``read_npz`` store a
 table as the JAX package does (uint32 key lanes).
 """
 
@@ -27,6 +29,7 @@ import torch
 
 from locust_tpu_torch.core import bytes_ops
 from locust_tpu_torch.core.kv import KVBatch
+from locust_tpu_torch.io import native_ingest
 
 # Packed binary KV intermediate ("LKVB" v1).  Layout, all little-endian:
 #   0   4  magic b"LKVB"
@@ -124,18 +127,23 @@ def write_intermediate(pairs: list[tuple[bytes, int]], path: str, fmt: str = "ts
     (write_kvbin if fmt == "bin" else write_tsv)(pairs, path)
 
 
-def read_intermediate(path: str, key_width: int) -> tuple[np.ndarray, np.ndarray]:
+def read_intermediate(path: str, key_width: int,
+                      use_native: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """Format-sniffing read: packed binary KV by magic, else TSV."""
     if is_kvbin(path):
         return read_kvbin(path, key_width)
-    return read_tsv(path, key_width)
+    return read_tsv(path, key_width, use_native=use_native)
 
 
-def read_tsv(path: str, key_width: int) -> tuple[np.ndarray, np.ndarray]:
+def read_tsv(path: str, key_width: int,
+             use_native: bool = True) -> tuple[np.ndarray, np.ndarray]:
     """``key\\tvalue`` TSV -> (padded key rows, int32 values).  Splits on
     the first tab like the reference's parser (main.cu:84-97), strips a
     key's trailing spaces, skips blank and malformed rows, and raises on
-    a value outside int32."""
+    a value outside int32.  The native parser reads keys up to 256 bytes
+    wide (its per-line key buffer); wider keys take the Python parser."""
+    if use_native and key_width <= 256:
+        return native_ingest.read_tsv(path, key_width)
     keys: list[bytes] = []
     values: list[int] = []
     with open(path, "rb") as f:

@@ -2,16 +2,21 @@
 
 Port of ``locust_tpu/io/snapshot.py`` with its telemetry (the
 ``ckpt.write`` span and the ``ckpt.publish`` and ``ckpt.skip`` events)
-and without its fault-injection sites (those come with the port's fault
-tier).
+and its fault sites (utils/faultplan.py).
 
 * ``finalize_snapshot`` publishes a fully written temporary file with one
-  atomic ``os.replace``, keeping the previous generation when asked.
+  atomic ``os.replace``, keeping the previous generation when asked.  The
+  ``io.ckpt_write`` site delays the writer or crashes it between the
+  temporary file and the rename (the temporary file stays behind, the
+  previous generation survives); the ``io.checkpoint`` site damages the
+  published file.
 * ``AsyncCheckpointWriter``: the fold loop only marks a generation (a
   device copy of the table and a closure that writes it); one daemon
   thread runs the closures strictly in order, one pending generation
-  deep, latest wins.  A writer error is raised on the submitting thread
-  at the next ``submit()`` or ``flush()``.
+  deep, latest wins.  An injected writer crash (``FaultInjected``)
+  abandons that snapshot and the run goes on; any other writer error is
+  raised on the submitting thread at the next ``submit()`` or
+  ``flush()``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import threading
 import time
 
 from locust_tpu_torch import obs
+from locust_tpu_torch.utils import faultplan
 
 logger = logging.getLogger("locust_tpu_torch")
 
@@ -29,12 +35,26 @@ logger = logging.getLogger("locust_tpu_torch")
 def finalize_snapshot(tmp: str, path: str, prev_path: str | None = None,
                       generation: int | None = None) -> None:
     """Publish the fully written ``tmp`` at ``path`` atomically; with
-    ``prev_path``, the generation it replaces moves there first."""
+    ``prev_path``, the generation it replaces moves there first.  A
+    "crash" fault at ``io.ckpt_write`` raises ``FaultCrash`` before the
+    rename, leaving ``tmp`` behind and ``path`` at its previous
+    generation."""
+    rule = faultplan.fire("io.ckpt_write", path=path, generation=generation)
+    if rule is not None:
+        if rule.action == "delay" and rule.delay_s > 0:
+            time.sleep(rule.delay_s)
+        elif rule.action == "crash":
+            raise faultplan.FaultCrash(
+                f"[faultplan] injected checkpoint-writer crash before rename of {path} "
+                f"(generation {generation})")
     if prev_path is not None and os.path.exists(path):
         os.replace(path, prev_path)
     os.replace(tmp, path)
     # The generation is durable from this instant.
     obs.event("ckpt.publish", generation=generation, path=path)
+    # Damage to the published file (no-op without a plan): loaders must
+    # check it and start afresh.
+    faultplan.damage_file("io.checkpoint", path)
 
 
 class AsyncCheckpointWriter:
@@ -47,7 +67,7 @@ class AsyncCheckpointWriter:
     re-raises a recorded error; ``close()`` flushes within a bound and
     stops the thread, never raising.  ``stats()`` has the JAX writer's
     keys: ``submitted``, ``written``, ``skipped`` (replaced while
-    pending), ``abandoned`` (0: the port injects no writer crash) and
+    pending), ``abandoned`` (injected writer crashes) and
     ``max_lag`` (generations the newest mark ran ahead of a snapshot when
     it was published)."""
 
@@ -63,6 +83,7 @@ class AsyncCheckpointWriter:
         self._submitted = 0
         self._written = 0
         self._skipped = 0
+        self._abandoned = 0
         self._latest_gen = 0
         self._max_lag = 0
         self._thread = threading.Thread(target=self._run, name=name, daemon=True)
@@ -119,7 +140,7 @@ class AsyncCheckpointWriter:
                 "submitted": self._submitted,
                 "written": self._written,
                 "skipped": self._skipped,
-                "abandoned": 0,
+                "abandoned": self._abandoned,
                 "max_lag": self._max_lag,
             }
 
@@ -134,10 +155,16 @@ class AsyncCheckpointWriter:
                 self._pending = None
                 self._busy = True
                 self._cond.notify_all()
-            error = None
+            abandoned, error = False, None
             try:
                 with obs.scoped(self._obs_tracer), obs.span("ckpt.write", generation=generation):
                     fn()
+            except faultplan.FaultInjected as e:
+                # The writer "died": this snapshot is lost, the previous
+                # generation survives on disk, the run goes on.
+                abandoned = True
+                logger.warning("checkpoint writer crash injected at generation %d (%s); "
+                               "snapshot abandoned", generation, e)
             except Exception as e:  # noqa: BLE001 - relayed to the submitter
                 error = e
                 logger.warning(
@@ -146,7 +173,9 @@ class AsyncCheckpointWriter:
                 )
             with self._cond:
                 self._busy = False
-                if error is not None:
+                if abandoned:
+                    self._abandoned += 1
+                elif error is not None:
                     self._error = error
                 else:
                     self._written += 1

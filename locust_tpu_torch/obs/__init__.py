@@ -4,8 +4,8 @@ Port of the core of ``locust_tpu/obs``: a process-wide ``Tracer`` with
 nested named spans + instant events, a closed-registry ``Metrics``
 surface and Chrome-trace/Perfetto export, validated against the port's
 own copy of the trace schema (``obs/schema.py``).  The name registry is
-``obs/names.py``, the JAX package's, copied whole.  The xplane device-time
-attribution (``locust_tpu/obs/attribution.py``) is not ported.
+``obs/names.py``, the JAX package's, copied whole.  ``obs/attribution.py``
+joins the profiler's device-time families onto the Process-stage spans.
 
 ZERO-overhead disabled contract: telemetry is OFF by default, and every
 module hook below bails before allocating anything — ``span()`` returns

@@ -188,7 +188,9 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "assert not bad, bad\n"
         "assert len(names) >= 30, names\n"
         "for sub in ('obs', 'obs.trace', 'obs.schema', 'plan', 'plan.compile', 'plan.optimize',\n"
-        "            'apps', 'apps.tfidf', 'apps.inverted_index', 'apps.pagerank', 'cli_apps'):\n"
+        "            'apps', 'apps.tfidf', 'apps.inverted_index', 'apps.pagerank', 'cli_apps',\n"
+        "            'io.native_ingest', 'io.corpus', 'utils.roofline', 'utils.profiling',\n"
+        "            'utils.checks', 'utils.faultplan', 'obs.attribution'):\n"
         "    assert 'locust_tpu_torch.' + sub in names, sub\n"
         "print('ok', len(names))\n"
     )
