@@ -57,10 +57,27 @@ followed by a clean restart; ``run_stream`` under fused and bitonic over
 a 256 MiB seeded Zipf corpus (``io/corpus.write_corpus``, cut from the
 1 GiB north star to keep the script inside its time) against a Counter
 of its words; and ``utils/roofline.summarize`` beside each MB/s, every
-utilisation from the least bytes moved and at most 100%.  The kernels'
+utilisation from the least bytes moved and at most 100%.  Then the
+distributed tier: 2 port workers started as processes (``python -m
+locust_tpu_torch.distributor.worker``) share the card, and the port's
+master, a process too, runs WordCount over them under ``bitonic`` (bin
+and tsv intermediates) and ``--sort-mode fused``, each stdout byte for
+byte the one-shot CLI's and the oracle's, with the job's, each shard's
+and the reduce's times and the data plane's bytes and MB/s from the
+master's merged ``--trace-out`` trace (whose ``worker.map`` spans must
+come from both workers); a chaos job (a ``worker.map`` crash on one
+worker, an ``io.chunk`` corruption on the other) that must stay exact;
+``run_checkpointed`` with a ``CircuitBreaker`` under a
+``backend.dispatch`` error plan (exact through the trip, the reload and
+the half-open probe) and without one, every fold on the card in both;
+and the loopback data-plane microbench.  The kernels'
 launch counters are set to 0
 just before each path and read just after it; each path must launch each
-kernel exactly as often as its blocks demand.  The ``kernels`` line
+kernel exactly as often as its blocks demand.  A distributed job's
+processes run under this script's counting wrapper (``chip_smoke.py
+--counted-child LOG MODULE ARGS``), which appends each process's counts
+to LOG as it ends; LOG is emptied just before the job and read just
+after it.  The ``kernels`` line
 reports each kernel's count on its CLI path as ``launches`` and every
 path's in ``launches_by_path``.
 
@@ -701,6 +718,355 @@ def debug_faults_phase(env) -> None:
         log(f"  io.checkpoint truncated {plan.rules[0].fired} published snapshots: pairs == "
             "oracle; the rerun started afresh: pairs == oracle")
         env.check_counts("fault_resumed", "fault_truncated_restart")
+
+
+DIST_SECRET = "chip-smoke-distributor"
+
+
+def _counted(log_path: str, module: str) -> list[str]:
+    """The command that runs ``module``'s ``main`` under ``_counted_child``."""
+    return [sys.executable, os.path.abspath(__file__), "--counted-child", log_path, module]
+
+
+def _counted_child(log_path: str, module: str, args: list[str]) -> int:
+    """``chip_smoke.py --counted-child LOG MODULE ARGS...``: a process of
+    the distributor phase.  Runs ``MODULE.main(ARGS)``, then appends one
+    JSON line to LOG: MODULE, ARGS and each kernel wrapper's launch count
+    in this process (one ``write`` to a file opened for appending, so the
+    lines of concurrent processes do not interleave).  A worker runs each
+    of its maps as such a child of ``locust_tpu_torch.cli``; it launches
+    no kernel itself and appends nothing."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    if module == "locust_tpu_torch.distributor.worker":
+        mod.MAP_COMMAND = tuple(_counted(log_path, "locust_tpu_torch.cli"))
+        return mod.main(args)
+    try:
+        return mod.main(args)
+    finally:
+        from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
+        from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
+        from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
+
+        line = json.dumps({"module": module, "argv": args, "pid": os.getpid(),
+                           "tokenize": tokenize_block_kernel.launches,
+                           "bitonic_sort": bitonic_sort_rows.launches,
+                           "fused_fold": fused_block_preagg.launches})
+        with open(log_path, "a", encoding="utf-8") as f:
+            f.write(line + "\n")
+
+
+def _start_worker(env, name: str, plan: dict | None = None):
+    """One port worker (``locust_tpu_torch.distributor.worker --port 0``,
+    its maps under the counting wrapper), its stderr in a file; returns
+    ``(proc, (host, port))`` once it listens."""
+    cmd = [*_counted(env.launch_log, "locust_tpu_torch.distributor.worker"), "--port", "0",
+           "--workdir", env.dist_tmp]
+    if plan is not None:
+        cmd += ["--fault-plan", json.dumps(plan)]
+    err_path = os.path.join(env.work, f"{name}.stderr")
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env.dist_env, stdout=subprocess.DEVNULL,
+                                stderr=err)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        with open(err_path, "rb") as f:
+            m = re.search(rb"listening on ([\d.]+):(\d+)", f.read())
+        if m:
+            return proc, (m.group(1).decode(), int(m.group(2)))
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    proc.kill()
+    with open(err_path, "rb") as f:
+        raise AssertionError(f"worker {name} did not start: {f.read()[-2000:]!r}")
+
+
+def _stop_workers(workers) -> None:
+    """Shut each worker down over the wire, then make sure it exited."""
+    from locust_tpu_torch.distributor import master
+
+    for proc, addr in workers:
+        try:
+            master.rpc(addr, {"cmd": "shutdown"}, DIST_SECRET.encode(), timeout=10)
+        except (OSError, ValueError, PermissionError):
+            pass
+    for proc, _ in workers:
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=15)
+
+
+def _launch_lines(path: str) -> list[dict]:
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _spans_s(doc: dict, name: str) -> list[tuple[dict, float]]:
+    return [(e.get("args", {}), e["dur"] / 1e6) for e in doc["traceEvents"]
+            if e.get("name") == name and e.get("ph") == "X"]
+
+
+def distributor_phase(env) -> dict:
+    """The distributed tier on the card: 2 port workers as processes
+    sharing it, the port's master as a process over a cluster file, each
+    job's stdout byte-identical to the one-shot CLI and the oracle; a
+    chaos job; the merged trace; the breaker; the loopback data-plane
+    microbench.  Every process of a job that launches kernels runs under
+    ``_counted_child`` and appends its launches to one log, emptied just
+    before the job and read just after it."""
+    from locust_tpu_torch.backend import CircuitBreaker
+    from locust_tpu_torch.distributor.microbench import run_microbench
+    from locust_tpu_torch.engine import MapReduceEngine
+    from locust_tpu_torch.utils import faultplan
+
+    torch = env.torch
+    on_card = env.dev.type == "cuda"
+    report = {"card": env.smi, "jobs": {}}
+    env.dist_tmp = os.path.join(env.work, "dist_tmp")
+    os.makedirs(env.dist_tmp, exist_ok=True)
+    launch_log = env.launch_log = os.path.join(env.work, "launches.jsonl")
+    env.dist_env = dict(os.environ, LOCUST_SECRET=DIST_SECRET, TMPDIR=env.dist_tmp,
+                        PYTHONPATH=os.pathsep.join(
+                            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    n_lines = len(env.lines)
+    per = -(-n_lines // 2)
+    shard_blocks = [-(-per // env.BL), -(-(n_lines - per) // env.BL)]
+
+    def map_expect(mode: str, shard: int) -> dict:
+        nb = shard_blocks[shard]
+        if mode == "fused":
+            return {"tokenize": 0, "bitonic_sort": 0, "fused_fold": nb}
+        return {"tokenize": nb, "bitonic_sort": 2 * nb, "fused_fold": 0}
+
+    reduce_expect = {"bitonic": {"tokenize": 0, "bitonic_sort": 1, "fused_fold": 0},
+                     "fused": {"tokenize": 0, "bitonic_sort": 0, "fused_fold": 0}}
+
+    def run_master(name: str, cluster_file: str, mode: str, extra: list[str]) -> dict:
+        trace = os.path.join(env.work, f"{name}.trace.json")
+        cmd = [*_counted(launch_log, "locust_tpu_torch.distributor.master"), cluster_file,
+               env.corpus_file, "--workdir", os.path.join(env.work, name),
+               "--trace-out", trace, *extra, *env.cli_extra]
+        open(launch_log, "w").close()  # every count to 0 just before the job
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env.dist_env, capture_output=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        lines = _launch_lines(launch_log)  # and read just after it
+        err = proc.stderr.decode(errors="replace")
+        if proc.returncode != 0:
+            raise AssertionError(f"master {name} exited {proc.returncode}: {err[-3000:]}")
+        if proc.stdout != env.want or proc.stdout != env.oneshot_out:
+            raise AssertionError(f"master {name}: stdout differs from the one-shot CLI / oracle")
+        with open(trace, encoding="utf-8") as f:
+            doc = json.load(f)
+        dp = re.search(r"dataplane: (\d+)B payload / (\d+)B wire in (\d+) chunk\(s\), "
+                       r"binary=(\w+) zlib=(\w+) fetch=([\d.]+|None) MB/s", err)
+        shards = {int(m[0]): {"elapsed_s": float(m[1]), "winner": int(m[2]),
+                              "attempts": int(m[3])}
+                  for m in re.findall(r"shard (\d+): ([\d.]+)s on worker (\d+), (\d+) attempt",
+                                      err)}
+        for args, dur in _spans_s(doc, "master.map_rpc"):
+            shards[args["shard"]].setdefault("map_rpc_s", []).append(dur)
+        for args, dur in _spans_s(doc, "worker.map"):
+            shards[args["shard"]].setdefault("worker_map_s", []).append(dur)
+        for args, dur in _spans_s(doc, "master.fetch"):
+            shard = int(re.search(r"shard(\d+)_a", args["path"]).group(1))
+            shards[shard].setdefault("fetch_s", []).append(dur)
+        maps = [ln for ln in lines if ln["module"] == "locust_tpu_torch.cli"
+                and ln["argv"][4:5] == ["1"]]
+        reduces = [ln for ln in lines if ln["module"] == "locust_tpu_torch.distributor.master"]
+        kernels = ("tokenize", "bitonic_sort", "fused_fold")
+        for ln in maps:
+            shards[int(ln["argv"][3])].setdefault("launches", []).append(
+                {k: ln[k] for k in kernels})
+        job = {
+            "mode": mode, "argv": extra, "wall_s": wall,
+            "job_run_s": sum(d for _, d in _spans_s(doc, "job.run")),
+            "reduce_s": sum(d for n in ("cli.load", "cli.run", "cli.output")
+                            for _, d in _spans_s(doc, n)),
+            "shards": shards,
+            "dataplane": None if dp is None else {
+                "payload_bytes": int(dp[1]), "wire_bytes": int(dp[2]), "chunks": int(dp[3]),
+                "binary": dp[4] == "True", "zlib": dp[5] == "True",
+                "fetch_mb_s": None if dp[6] == "None" else float(dp[6])},
+            "reduce_launches": {k: sum(ln[k] for ln in reduces) for k in kernels},
+            "trace": doc,
+        }
+        if (len(reduces) != 1 or len(maps) + len(reduces) != len(lines)
+                or sorted({int(ln["argv"][3]) for ln in maps}) != [0, 1]):
+            raise AssertionError(f"master {name}: launch log has {len(maps)} map and "
+                                 f"{len(reduces)} reduce lines")
+        env.by_path[name] = {k: sum(ln[k] for ln in lines) for k in kernels}
+        if on_card:
+            for ln in maps:
+                if {k: ln[k] for k in kernels} != map_expect(mode, int(ln["argv"][3])):
+                    raise AssertionError(f"master {name}: shard {ln['argv'][3]}'s map launched "
+                                         f"{ln}, expected {map_expect(mode, int(ln['argv'][3]))}")
+            if job["reduce_launches"] != reduce_expect[mode]:
+                raise AssertionError(f"master {name}: the reduce launched "
+                                     f"{job['reduce_launches']}")
+            env.expected[name] = {k: sum(map_expect(mode, int(ln["argv"][3]))[k]
+                                         for ln in maps) + reduce_expect[mode][k]
+                                  for k in kernels}
+            env.check_counts(name)
+        log(f"  {name} ({' '.join(extra) or 'defaults'}): stdout == one-shot CLI == oracle; "
+            f"master process wall {wall:.3f} s, job.run {job['job_run_s']:.3f} s, reduce "
+            f"{job['reduce_s']:.3f} s; dataplane {json.dumps(job['dataplane'])}")
+        for shard, st in sorted(shards.items()):
+            log(f"    shard {shard}: {st['attempts']} attempt(s), won by worker {st['winner']} "
+                f"in {st['elapsed_s']:.3f} s; map RPC s {[round(x, 3) for x in st['map_rpc_s']]}"
+                f", worker.map s {[round(x, 3) for x in st.get('worker_map_s', [])]}, fetch s "
+                f"{[round(x, 4) for x in st.get('fetch_s', [])]}, map launches "
+                f"{st.get('launches')}")
+        return job
+
+    work_dist = os.path.join(env.work, "dist")
+    os.makedirs(work_dist, exist_ok=True)
+    with phase("the distributor: 2 port workers (processes) share the card; the port's master "
+               "under bitonic (bin, tsv) and fused, each byte-identical to the one-shot CLI"):
+        log(f"  card: {env.smi}")
+        # Where a process's time goes before its work: the interpreter,
+        # torch's import, a CUDA context, the port's modules.
+        starts = {}
+        probes = [("python", "pass"), ("import torch", "import torch"),
+                  ("import the port's CLI and master",
+                   "import locust_tpu_torch.cli, locust_tpu_torch.distributor.master")]
+        if on_card:
+            probes.insert(2, ("import torch + a CUDA context", "import torch; torch.zeros(1, "
+                              "device='cuda'); torch.cuda.synchronize()"))
+        for what, code in probes:
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env.dist_env,
+                           check=True, timeout=300)
+            starts[what] = time.perf_counter() - t0
+        report["process_start_s"] = starts
+        log(f"  process start, wall s: {json.dumps(starts)}")
+        t0 = time.perf_counter()
+        one = subprocess.run([sys.executable, "-m", "locust_tpu_torch", env.corpus_file,
+                              "--trace", *env.cli_extra], cwd=HERE, env=env.dist_env,
+                             capture_output=True, timeout=900)
+        report["oneshot_cli_wall_s"] = time.perf_counter() - t0
+        if one.returncode != 0 or one.stdout != env.want:
+            raise AssertionError(f"the one-shot CLI process: rc {one.returncode}, stdout == "
+                                 f"oracle {one.stdout == env.want}")
+        env.oneshot_out = one.stdout
+        report["oneshot_cli_spans_ms"] = {
+            k: float(v) for k, v in re.findall(r"^(load|run|output)\s+([\d.]+) ms",
+                                               one.stderr.decode(errors="replace"), re.M)}
+        log(f"  one-shot CLI process (python -m locust_tpu_torch FILE --trace): "
+            f"{report['oneshot_cli_wall_s']:.3f} s wall, its spans ms "
+            f"{json.dumps(report['oneshot_cli_spans_ms'])}, stdout == oracle")
+        workers = []
+        try:
+            workers = [_start_worker(env, f"worker{i}") for i in range(2)]
+            cluster = os.path.join(work_dist, "cluster.txt")
+            with open(cluster, "w") as f:
+                f.write("".join(f"{h} {p}\n" for _, (h, p) in workers))
+            log(f"  workers listening on {[a for _, a in workers]}")
+            for name, mode, extra in (("dist_bitonic_bin", "bitonic", []),
+                                      ("dist_bitonic_tsv", "bitonic", ["--inter-format", "tsv"]),
+                                      ("dist_fused", "fused", ["--sort-mode", "fused",
+                                                               "--no-timing"])):
+                report["jobs"][name] = run_master(name, cluster, mode, extra)
+            doc = report["jobs"]["dist_bitonic_bin"].pop("trace")
+            names = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"] if e["ph"] == "M"}
+            pids = {names[e["pid"]] for e in doc["traceEvents"] if e.get("name") == "worker.map"}
+            want_pids = {f"worker {h}:{p}" for _, (h, p) in workers}
+            if pids != want_pids or not isinstance(doc["otherData"].get("trace_id"), str):
+                raise AssertionError(f"the merged trace's worker.map spans come from {pids}, "
+                                     f"expected {want_pids}")
+            log(f"  --trace-out: one trace id {doc['otherData']['trace_id']}, worker.map spans "
+                f"from {sorted(pids)}, {len(doc['traceEvents'])} records")
+        finally:
+            _stop_workers(workers)
+        for job in report["jobs"].values():
+            job.pop("trace", None)
+
+    with phase("the distributor under chaos: worker.map crash x1 on one worker, io.chunk "
+               "corrupt x1 on the other; byte-identical"):
+        workers = []
+        try:
+            workers = [
+                _start_worker(env, "chaos0", {"rules": [
+                    {"site": "worker.map", "action": "crash", "times": 1}]}),
+                _start_worker(env, "chaos1", {"rules": [
+                    {"site": "io.chunk", "action": "corrupt", "times": 1}]})]
+            cluster = os.path.join(work_dist, "chaos_cluster.txt")
+            with open(cluster, "w") as f:
+                f.write("".join(f"{h} {p}\n" for _, (h, p) in workers))
+            job = run_master("dist_chaos", cluster, "bitonic", [])
+            job.pop("trace")
+            extra = sum(st["attempts"] for st in job["shards"].values()) - 2
+            if extra < 2:
+                raise AssertionError(f"the chaos job took {extra} extra attempts, expected >= 2")
+            job["extra_attempts"] = extra
+            report["jobs"]["dist_chaos"] = job
+            log(f"  chaos job: {extra} extra attempts, stdout == one-shot CLI == oracle")
+        finally:
+            _stop_workers(workers)
+
+    with phase("the backend breaker: run_checkpointed(every=2, breaker=CircuitBreaker(2, "
+               "0.05)) under a backend.dispatch error plan (times 3), then with no plan"):
+        from locust_tpu_torch import obs
+
+        eng = MapReduceEngine(env.cfg, device=env.dev)
+        breaker = {}
+        for name, rules in (("breaker_faults", [{"site": "backend.dispatch", "action": "error",
+                                                 "times": 3}]),
+                            ("breaker_clean", None)):
+            br = CircuitBreaker(threshold=2, cooldown_s=0.05)
+            ck = os.path.join(env.work, name)
+            obs.enable(process=name)
+            try:
+                with (faultplan.active_plan(faultplan.FaultPlan(rules, seed=7)) if rules
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    res, env.by_path[name] = env.counted(
+                        lambda: eng.run_checkpointed(env.rows, ck, every=2, breaker=br))
+                    wall = time.perf_counter() - t0
+                doc = obs.export(os.path.join(env.work, f"{name}.trace.json"))
+            finally:
+                obs.disable()
+            env.check_pairs(name, res, env.oracle)
+            events = [e["name"] for e in doc["traceEvents"] if e["name"].startswith("backend.")]
+            st = br.stats()
+            breaker[name] = {"wall_s": wall, "stats": st, "events": events,
+                             "launches": env.by_path[name]}
+            # Every fold on the card: each block folded once there (a
+            # failed dispatch launches nothing), no backend.failover, and
+            # the table the run returns lives on the card.
+            env.expected[name] = {"tokenize": env.nblocks, "bitonic_sort": env.nblocks,
+                                  "fused_fold": 0}
+            if ("backend.failover" in events or st["successes"] != env.nblocks
+                    or res.table.key_lanes.device.type != env.dev.type or st["state"] != "closed"):
+                raise AssertionError(f"{name}: breaker {st}, events {events}, table on "
+                                     f"{res.table.key_lanes.device}")
+            if on_card:
+                env.check_counts(name)
+            if rules:
+                if st["trips"] != 1 or st["failures"] != 3:
+                    raise AssertionError(f"{name}: breaker {st}")
+            elif st["failures"] or events:
+                raise AssertionError(f"{name}: breaker {st}, events {events}")
+            log(f"  {name}: pairs == oracle in {wall:.3f} s, every fold on {env.dev}; breaker "
+                f"{json.dumps(st)}; backend.* events {events}; launches {env.by_path[name]}")
+        report["breaker"] = breaker
+
+    with phase("the loopback data-plane microbench (json_w1, bin_w1, bin_wK, bin_wK_z)"):
+        bench = run_microbench()
+        for name, st in bench["variants"].items():
+            log(f"  {name}: {st['mb_s']} MB/s, {st['bytes']} B payload, {st['wire_bytes']} B "
+                f"wire, {st['chunks']} chunks, window {st['window']}")
+        log(f"  summary {json.dumps(bench['summary'])} (host sockets on the card's machine; "
+            f"card: {env.smi})")
+        report["microbench"] = bench
+    return report
 
 
 ZIPF_BYTES = 256 << 20
@@ -1450,7 +1816,8 @@ def main() -> int:
         corpus_bytes=corpus_bytes, work=work.name, nblocks=nblocks, BL=BL, W=W, E=E, K=K,
         want=want, expected=expected, run_cli=run_cli, check_counts=check_counts,
         median_s=median_s, cli_extra=[], counted=counted, by_path=by_path, oracle=oracle,
-        check_pairs=check_pairs)
+        check_pairs=check_pairs, smi=smi)
+    dist_report = distributor_phase(env)
     plan_phase(env)
     app_mbs = apps_phase(env)
     pagerank_report = pagerank_phase(env)
@@ -1773,7 +2140,7 @@ def main() -> int:
                                           "est_sort_traffic_gb", "achieved_sort_gb_s",
                                           "sort_passes")}
                     for k, r in roof.items()},
-       "attribution": attribution}
+       "attribution": attribution, "distributor": dist_report}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1782,4 +2149,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted-child"]:
+        raise SystemExit(_counted_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     raise SystemExit(main())

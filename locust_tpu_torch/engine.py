@@ -17,7 +17,8 @@ blocks in bounded memory (a staging ring, at most
 ``STREAM_DISPATCH_DEPTH`` folds in flight, snapshots on a background
 writer); under ``fused`` it stages segments of blocks and folds each with
 ONE fused-kernel launch.  ``run_checkpointed`` folds host rows with
-crash-resumable snapshots.  Python loops stand in for the JAX package's
+crash-resumable snapshots and, given a ``backend.CircuitBreaker``, fails
+a fold over to the CPU and back.  Python loops stand in for the JAX package's
 ``jit`` and ``lax.scan``: PyTorch runs eagerly and the device queue keeps
 the blocks' launches back to back.
 
@@ -42,6 +43,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from locust_tpu_torch import backend as backend_mod
 from locust_tpu_torch import obs
 from locust_tpu_torch.config import (
     DEFAULT_CONFIG,
@@ -265,7 +267,7 @@ class _CheckpointPump:
             # The counters are new tensors every fold: references do.
             snap = KVBatch(acc.key_lanes.clone(), acc.values.clone(), acc.valid.clone())
             self._writer.submit(next_block, functools.partial(
-                _write_marked, self._eng._fence(), self._path, snap, next_block,
+                _write_marked, self._eng._fence(acc.values.device), self._path, snap, next_block,
                 overflow, max_distinct, self._fp))
         self.mark_ms += (time.perf_counter() - t0) * 1e3
 
@@ -298,6 +300,44 @@ def _write_marked(ready, path, acc, next_block, overflow, max_distinct, fingerpr
     if ready is not None:
         ready.synchronize()
     save_snapshot(path, acc, next_block, overflow, max_distinct, fingerprint)
+
+
+# A card whose half-open probes keep failing ends a breaker run: after
+# the trip, at most this many probes, each after a full cooldown.
+BREAKER_PROBES = 3
+
+
+def _await_probe(breaker, device: torch.device, err: BaseException) -> None:
+    """After a failed dispatch: a closed breaker retries at once; an open
+    one is slept out until it admits its half-open probe.  The fold never
+    leaves ``device``.  Raises, naming ``err``, once the card has failed
+    its trip and ``BREAKER_PROBES`` probes in a row, or when the breaker
+    stays open past its cooldown (another caller holds the probe)."""
+    failed = breaker.stats()["consecutive_failures"]
+    if failed >= breaker.threshold + BREAKER_PROBES:
+        raise RuntimeError(
+            f"dispatch on {device} failed {failed} times in a row, {BREAKER_PROBES} of them "
+            f"half-open probes after the breaker's cooldown; the last: "
+            f"{type(err).__name__}: {err}") from err
+    deadline = time.monotonic() + breaker.cooldown_s + 1.0
+    while not breaker.allow():
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"the breaker stayed open past its {breaker.cooldown_s} s cooldown after a "
+                f"failed dispatch on {device}: {type(err).__name__}: {err}") from err
+        time.sleep(min(breaker.cooldown_s, 0.05))
+
+
+def _settle(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` after a failed dispatch; an
+    error it reports belongs to that dispatch, which already counts as
+    failed."""
+    if device.type != "cuda":
+        return
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError as e:
+        logger.warning("synchronize after the failed dispatch raised: %s", e)
 
 
 class MapReduceEngine:
@@ -378,13 +418,15 @@ class MapReduceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _fence(self) -> torch.cuda.Event | None:
-        """A CUDA event recorded on the current stream after the work
-        queued so far (None on the CPU, where that work is done)."""
-        if self.device.type != "cuda":
+    def _fence(self, device: torch.device | None = None) -> torch.cuda.Event | None:
+        """A CUDA event recorded on the current stream of ``device`` (the
+        engine's by default) after the work queued so far; None on the
+        CPU, where that work is done."""
+        device = self.device if device is None else device
+        if device.type != "cuda":
             return None
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        ev.record(torch.cuda.current_stream(device))
         return ev
 
     def _to_device(self, host: torch.Tensor) -> torch.Tensor:
@@ -683,15 +725,17 @@ class MapReduceEngine:
     # ---------------------------------------------------------- checkpointing
 
     def _load_state(self, state_path: str, fingerprint: str, acc: KVBatch,
-                    overflow: torch.Tensor, max_distinct: torch.Tensor):
+                    overflow: torch.Tensor, max_distinct: torch.Tensor, device=None):
         """Restore ``(start_block, overflow, max_distinct, acc)`` from a
-        snapshot of the same run; otherwise pass the fresh state through.
-        A snapshot of another run, or one that cannot be read, starts the
-        run afresh with a warning."""
+        snapshot of the same run onto ``device`` (the engine's by
+        default); otherwise pass the fresh state through.  A snapshot of
+        another run, or one that cannot be read, starts the run afresh
+        with a warning."""
+        device = self.device if device is None else device
         if not os.path.exists(state_path):
             return 0, overflow, max_distinct, acc
         try:
-            snap = load_jax_checkpoint(state_path, self.device)
+            snap = load_jax_checkpoint(state_path, device)
         except Exception as e:  # noqa: BLE001 - a truncated or garbled npz
             logger.warning("checkpoint at %s is unreadable (%s: %s); starting fresh",
                            state_path, type(e).__name__, e)
@@ -703,7 +747,7 @@ class MapReduceEngine:
         logger.info("resuming from checkpoint at block %d (%s)", snap.next_block, state_path)
 
         def scalar(v: int) -> torch.Tensor:
-            return torch.tensor(v, dtype=torch.int32, device=self.device)
+            return torch.tensor(v, dtype=torch.int32, device=device)
 
         return snap.next_block, scalar(snap.overflow), scalar(snap.max_distinct), snap.acc
 
@@ -721,14 +765,19 @@ class MapReduceEngine:
         another configuration starts fresh.  The snapshot is the JAX
         engine's, field for field, so either package resumes the other's.
 
-        ``breaker`` (the JAX engine's CUDA->CPU failover) is not ported."""
+        ``breaker`` (a ``backend.CircuitBreaker``) opts in to retries:
+        every fold runs through ``backend.guarded_dispatch`` (the
+        ``backend.dispatch`` fault site).  A failed dispatch (an injected
+        fault, a refused kernel launch, a CUDA error) reloads the last
+        durable snapshot onto the engine's device and folds on from
+        there: at once while the breaker is closed, after its cooldown
+        once it is open (the first fold is the half-open probe).  The
+        fold never leaves the engine's device: a card that fails
+        ``BREAKER_PROBES`` probes in a row ends the run with an
+        error naming the failure.  Any other error, and every failure
+        without a breaker, raises."""
         from locust_tpu_torch.io.serde import fingerprint_corpus
 
-        if breaker is not None:
-            raise NotImplementedError(
-                "run_checkpointed(breaker=...) is not ported yet (ROADMAP.md "
-                "queue 1 item 8: the breaker's failover with the backend tier)"
-            )
         if every < 1:
             raise ValueError(f"checkpoint every must be >= 1, got {every}")
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -739,29 +788,66 @@ class MapReduceEngine:
             combine=self.combine,
             map_fn=getattr(self.map_fn, "__name__", str(self.map_fn)),
         )
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        start_block, overflow, max_distinct, acc = self._load_state(
-            state_path, fingerprint, self.empty_table(), zero, zero
-        )
+
+        def load():
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            return self._load_state(
+                state_path, fingerprint,
+                KVBatch.empty(self._table_size, self.cfg.key_lanes, self.device), zero, zero,
+                device=self.device,
+            )
+
+        start_block, overflow, max_distinct, acc = load()
         pump = _CheckpointPump(self, state_path, fingerprint, self.cfg.async_checkpoint)
         self._refolds = 0
         t0 = time.perf_counter()
         try:
-            i = start_block - 1
-            last_mark = start_block
-            for i, blk in enumerate(self._host_blocks(rows)):
-                if i < start_block:
-                    continue
-                lines = torch.from_numpy(blk).to(self.device)
-                acc, blk_overflow, distinct = self.fold_block(acc, lines)
-                overflow = overflow + blk_overflow
-                max_distinct = torch.maximum(max_distinct, distinct)
-                if (i + 1) % every == 0:
-                    pump.mark(acc, i + 1, overflow, max_distinct)
-                    last_mark = i + 1
-            if i + 1 > last_mark:  # no second write of a cadence-aligned end
-                pump.mark(acc, i + 1, overflow, max_distinct)
-            pump.finish()  # the final generation is durable before returning
+            while True:
+                dispatch_died = None
+                i = start_block - 1
+                last_mark = start_block
+                for i, blk in enumerate(self._host_blocks(rows)):
+                    if i < start_block:
+                        continue
+                    lines = torch.from_numpy(blk).to(self.device)
+                    # Only the fold is retryable: a checkpoint writer's
+                    # error re-raised by pump.mark stays loud.
+                    if breaker is None:
+                        acc, blk_overflow, distinct = self.fold_block(acc, lines)
+                    else:
+                        try:
+                            acc, blk_overflow, distinct = backend_mod.guarded_dispatch(
+                                breaker, functools.partial(self.fold_block, acc, lines),
+                                block=i, backend="primary",
+                            )
+                        except backend_mod.DISPATCH_ERRORS as e:
+                            dispatch_died = e
+                            break
+                    overflow = overflow + blk_overflow
+                    max_distinct = torch.maximum(max_distinct, distinct)
+                    if (i + 1) % every == 0:
+                        pump.mark(acc, i + 1, overflow, max_distinct)
+                        last_mark = i + 1
+                if dispatch_died is None:
+                    if i + 1 > last_mark:  # no second write of a cadence-aligned end
+                        pump.mark(acc, i + 1, overflow, max_distinct)
+                    pump.finish()  # the final generation is durable before returning
+                    break
+                # The dispatch died (guarded_dispatch counted it).  The
+                # live table is suspect, the last snapshot is not: let
+                # queued work settle, flush a pending write best effort,
+                # wait until the breaker admits the card, and reload.
+                logger.warning("fold of block %d failed on %s (%s: %s); reloading the last "
+                               "checkpoint", i, self.device, type(dispatch_died).__name__,
+                               dispatch_died)
+                _settle(self.device)
+                try:
+                    pump.finish()
+                except Exception as e:  # noqa: BLE001 - the reload decides
+                    logger.warning("checkpoint flush after the failed dispatch failed (%s); "
+                                   "resuming from the last durable generation", e)
+                _await_probe(breaker, self.device, dispatch_died)
+                start_block, overflow, max_distinct, acc = load()
         finally:
             pump.close()
         self._sync()

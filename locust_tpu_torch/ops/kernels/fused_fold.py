@@ -36,6 +36,7 @@ from locust_tpu_torch.config import (
 from locust_tpu_torch.core import packing
 from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.ops.hash_table import hash_aggregate
+from locust_tpu_torch.ops.kernels import KernelLaunchError
 from locust_tpu_torch.ops.kernels.tokenize import (
     delim_words,
     device_guard,
@@ -225,7 +226,7 @@ def fused_block_preagg(
             dev.index, stream_handle(dev),
         )
     if rc != 0:
-        raise RuntimeError(f"fused pre-aggregation kernel launch failed: cudaError {rc}")
+        raise KernelLaunchError(f"fused pre-aggregation kernel launch failed: cudaError {rc}")
     fused_block_preagg.launches += 1
     table = KVBatch(tab_lanes.view(slots, n_lanes), tab_count, tab_valid)
     resid = KVBatch(res_lanes.view(n_res, n_lanes), res_count, res_valid)

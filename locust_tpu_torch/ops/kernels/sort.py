@@ -30,6 +30,7 @@ import torch
 from locust_tpu_torch import _build
 from locust_tpu_torch.config import BITONIC_TILE_BITS, bitonic_launch_plan
 from locust_tpu_torch.core.packing import to_i32, to_u32
+from locust_tpu_torch.ops.kernels import KernelLaunchError
 
 
 def padded_size(n: int) -> int:
@@ -138,7 +139,7 @@ def bitonic_sort_rows(key: torch.Tensor, rows: torch.Tensor):
             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
         )
     if rc != 0:
-        raise RuntimeError(f"bitonic sort launch failed: cudaError {rc}")
+        raise KernelLaunchError(f"bitonic sort launch failed: cudaError {rc}")
     bitonic_sort_rows.launches += 1
     bitonic_sort_rows.cuda_launches = launched.value
     return out_key, out_rows

@@ -19,6 +19,7 @@ import torch
 from locust_tpu_torch import _build
 from locust_tpu_torch.config import FULL_DELIMITERS
 from locust_tpu_torch.core import bytes_ops
+from locust_tpu_torch.ops.kernels import KernelLaunchError
 
 
 def tokenize_reference(lines: torch.Tensor, emits: int, key_width: int):
@@ -147,7 +148,7 @@ def tokenize_block_kernel(lines: torch.Tensor, emits: int, key_width: int):
             *delim_words(), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"tokenizer kernel launch failed: cudaError {rc}")
+        raise KernelLaunchError(f"tokenizer kernel launch failed: cudaError {rc}")
     tokenize_block_kernel.launches += 1
     return keys, valid, total
 

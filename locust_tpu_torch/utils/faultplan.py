@@ -17,16 +17,28 @@ CLI: ``--fault-plan`` / ``$LOCUST_FAULT_PLAN``)::
       {"site": "io.checkpoint", "action": "truncate", "after": 1}
     ]}
 
-The port fires the single-device sites:
+The port fires these sites:
 
+  rpc.connect      master, before every connection (distributor/master.py)
+                                                    ctx: host, port
+  rpc.frame        every frame sent, JSON and binary, past its 4-byte
+                   length prefix (distributor/protocol.py)    ctx: cmd
+  rpc.delay        worker, before a command is handled
+                                                    ctx: cmd, shard, port
+  worker.map       worker, before a map runs        ctx: shard, port
+  io.intermediate  worker, a raw fetch window       ctx: path, offset, port
+  io.chunk         worker, the encoded payload of a binary fetch reply
+                                                    ctx: path, offset, port, enc
   io.checkpoint    engine snapshot just published   ctx: path
   io.ckpt_write    checkpoint writer between the fully written temporary
                    snapshot and its atomic rename (io/snapshot.py)
                                                     ctx: path, generation
+  backend.dispatch a fold on the card guarded by the circuit breaker
+                   (backend.guarded_dispatch)       ctx: block, backend
 
 The registry keeps every site of the JAX package, so a plan written for
-either package parses in both; the distributor, serve and backend sites
-fire once those tiers are ported.
+either package parses in both; the serve and plan sites (``serve.*``,
+``plan.*``) fire once the serve slice is ported.
 
 Determinism: rule bookkeeping is pure counting (``after`` skips,
 ``times`` caps), and the probabilistic gate and byte mutations derive

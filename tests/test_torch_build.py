@@ -123,6 +123,42 @@ def test_chip_smoke_app_oracles_equal_the_port(tmp_path, capfdbinary):
     np.testing.assert_allclose(got, smoke.pagerank_oracle(src, dst, 300, 20, 0.85), rtol=1e-5)
 
 
+def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, capfdbinary):
+    """``chip_smoke.py --counted-child LOG MODULE ARGS``: MODULE's main
+    runs, then one JSON line with its argv and this process's launch
+    counts lands in LOG; a worker instead points its maps at the same
+    wrapper and appends nothing itself."""
+    import json
+
+    from locust_tpu_torch.distributor import worker
+    from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
+    from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
+    from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
+
+    smoke = _smoke_module()
+    corpus = tmp_path / "c.txt"
+    corpus.write_bytes(b"a b\nb c\n")
+    log = str(tmp_path / "launches.jsonl")
+    monkeypatch.setattr(tokenize_block_kernel, "launches", 3)
+    monkeypatch.setattr(bitonic_sort_rows, "launches", 5)
+    monkeypatch.setattr(fused_block_preagg, "launches", 7)
+    argv = [str(corpus), "--backend", "cpu", "--no-timing"]
+    for _ in range(2):
+        assert smoke._counted_child(log, "locust_tpu_torch.cli", argv) == 0
+    assert capfdbinary.readouterr().out == b"a\t1\nb\t2\nc\t1\n" * 2
+    with open(log) as f:
+        lines = [json.loads(x) for x in f]
+    assert lines == [{"module": "locust_tpu_torch.cli", "argv": argv, "pid": os.getpid(),
+                      "tokenize": 3, "bitonic_sort": 5, "fused_fold": 7}] * 2
+    monkeypatch.setattr(worker, "MAP_COMMAND", worker.MAP_COMMAND)
+    monkeypatch.setattr(worker, "main", lambda args: 0)
+    assert smoke._counted_child(log, "locust_tpu_torch.distributor.worker", []) == 0
+    assert worker.MAP_COMMAND == (sys.executable, SMOKE, "--counted-child", log,
+                                  "locust_tpu_torch.cli")
+    with open(log) as f:
+        assert len(f.readlines()) == 2
+
+
 def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
     """The card has no jax: every import in the script, at any depth of
     its functions, names the port, the standard library, numpy or torch."""

@@ -190,8 +190,15 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "for sub in ('obs', 'obs.trace', 'obs.schema', 'plan', 'plan.compile', 'plan.optimize',\n"
         "            'apps', 'apps.tfidf', 'apps.inverted_index', 'apps.pagerank', 'cli_apps',\n"
         "            'io.native_ingest', 'io.corpus', 'utils.roofline', 'utils.profiling',\n"
-        "            'utils.checks', 'utils.faultplan', 'obs.attribution'):\n"
+        "            'utils.checks', 'utils.faultplan', 'obs.attribution', 'backend',\n"
+        "            'distributor', 'distributor.protocol', 'distributor.worker',\n"
+        "            'distributor.master', 'distributor.microbench'):\n"
         "    assert 'locust_tpu_torch.' + sub in names, sub\n"
+        "import locust_tpu_torch.distributor.protocol, locust_tpu_torch.distributor.worker\n"
+        "import locust_tpu_torch.distributor.master, locust_tpu_torch.distributor.microbench\n"
+        "import locust_tpu_torch.backend\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'locust_tpu.')) or m == 'locust_tpu')\n"
+        "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
@@ -221,17 +228,19 @@ def test_engine_and_cli_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_sort_modes_raise_not_implemented(tmp_path):
-    """Every sort mode is ported (slice 5); what is left of this surface,
-    the breaker failover of run_checkpointed, raises NotImplementedError
-    naming its ROADMAP item, and an unknown mode is refused."""
+    """Every sort mode is ported (slice 5) and the breaker of
+    run_checkpointed is ported (slice 8): nothing of this surface raises
+    NotImplementedError any more, and an unknown mode is refused."""
+    from locust_tpu_torch.backend import CircuitBreaker
     from locust_tpu_torch.engine import MapReduceEngine
     from locust_tpu_torch.ops.process_stage import sort_and_compact
 
     for mode in tconfig.SORT_MODES:
         assert MapReduceEngine(tconfig.EngineConfig(sort_mode=mode), device="cpu")
     eng = MapReduceEngine(tconfig.EngineConfig(sort_mode="hash"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        eng.run_checkpointed(np.zeros((4, 128), np.uint8), str(tmp_path), breaker=object())
+    br = CircuitBreaker()
+    res = eng.run_checkpointed(np.zeros((4, 128), np.uint8), str(tmp_path), breaker=br)
+    assert res.num_segments == 0 and br.stats()["successes"] == 1
     with pytest.raises(ValueError, match="unknown sort mode"):
         sort_and_compact(eng.empty_table(), "quick")
     with pytest.raises(ValueError, match="sort_mode must be one of"):
