@@ -70,7 +70,19 @@ worker, an ``io.chunk`` corruption on the other) that must stay exact;
 ``run_checkpointed`` with a ``CircuitBreaker`` under a
 ``backend.dispatch`` error plan (exact through the trip, the reload and
 the half-open probe) and without one, every fold on the card in both;
-and the loopback data-plane microbench.  The kernels'
+and the loopback data-plane microbench.  Then the serve daemon
+(``locust_tpu_torch.serve``) at the CLI's widths: in this process, a
+stream of one-block jobs over 3 tenants coalesced into batches under
+``bitonic`` (kernel B) and ``fused`` (kernel C), two jobs at the 16 MiB
+inline cap, result-cache repeats, warm and solo jobs, a ``hash`` job and
+a ``tfidf`` plan job, every answer the one-shot CLI's and the oracle's,
+with exact launch counts (padded job slots and blocks included) and
+cache counters; then ``python -m locust_tpu_torch.serve`` as a process
+with a journal and a warm dir, killed -9 during a 16 MiB job's dispatch,
+restarted (the replay timed alone too), the job's ``result --wait``
+byte for byte the one-shot CLI's, a clean restart answering it from the
+result cache, and structured ``poison_job`` and ``deadline_exceeded``
+answers under a ``serve.dispatch`` error plan.  The kernels'
 launch counters are set to 0
 just before each path and read just after it; each path must launch each
 kernel exactly as often as its blocks demand.  A distributed job's
@@ -1069,6 +1081,373 @@ def distributor_phase(env) -> dict:
     return report
 
 
+SERVE_SECRET = "chip-smoke-serve"
+
+
+def _table(pairs) -> bytes:
+    """A WordCount result as the CLI prints it: ``key\\tcount`` lines in key order."""
+    return b"".join(k + b"\t" + str(v).encode() + b"\n" for k, v in sorted(pairs))
+
+
+def _start_daemon(env, name: str, args: list[str]):
+    """``python -m locust_tpu_torch.serve --port 0 ARGS`` as a process, its
+    stderr in a file; returns ``(proc, port, seconds to listening)``."""
+    err_path = os.path.join(env.work, f"{name}.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "locust_tpu_torch.serve", "--port", "0",
+             *env.serve_daemon_extra, *args],
+            cwd=HERE, env=env.serve_env, stdout=subprocess.DEVNULL, stderr=err)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        with open(err_path, "rb") as f:
+            m = re.search(rb"listening on [\d.]+:(\d+)", f.read())
+        if m:
+            return proc, int(m.group(1)), time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.02)
+    proc.kill()
+    proc.wait(timeout=30)
+    with open(err_path, "rb") as f:
+        raise AssertionError(f"serve daemon {name} did not start: {f.read()[-2000:]!r}")
+
+
+def _serve_cli(env, port: int, args: list[str], check: bool = True):
+    """One ``python -m locust_tpu_torch.serve`` client command against the
+    daemon on ``port``; returns the completed process."""
+    out = subprocess.run(
+        [sys.executable, "-m", "locust_tpu_torch.serve", *args, "--port", str(port)],
+        cwd=HERE, env=env.serve_env, capture_output=True, timeout=600)
+    if check and out.returncode != 0:
+        raise AssertionError(f"serve {args[:1]} exited {out.returncode}: "
+                             f"{out.stderr.decode(errors='replace')[-2000:]}")
+    return out
+
+
+def _stop_daemon(env, proc, port: int) -> None:
+    """``shutdown`` over the wire, then make sure the process exited."""
+    if proc.poll() is None:
+        _serve_cli(env, port, ["shutdown"], check=False)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def serve_phase(env) -> dict:
+    """The serve daemon on the card (``locust_tpu_torch.serve``).
+
+    1. In process, at the CLI's widths (``env.serve_cfg`` adds nothing on
+       the card): a stream of one-block jobs over 3 tenants, half under
+       ``bitonic`` (kernel B) and half under ``fused`` (kernel C), in two
+       waves whose batches the scheduler coalesces (it is paused while a
+       wave is submitted); 2 jobs at the inline cap ``max_corpus_bytes``;
+       the one-block jobs again (result-cache hits); 4 new one-block jobs
+       (warm executable hits); per mode two jobs alone, a cold and a warm
+       one (a job's latency without batch mates); a default-config job
+       (``hash``, no kernel); a ``tfidf`` plan job under ``bitonic`` and
+       its repeat.
+       Every output equals the port's one-shot CLI and the oracle; the
+       cache answers and counters, and each kernel's launches in the
+       stream (padded jobs and blocks included), equal the prediction.
+    2. The daemon as a process with ``--journal-dir`` and ``--warm-dir``:
+       a 16 MiB job submitted with ``--no-wait``, the daemon killed -9
+       while it dispatches, restarted on the same directories, and
+       ``result JOB --wait`` byte for byte the one-shot CLI's; then
+       ``shutdown``, a restart under a ``serve.dispatch`` error plan and
+       the job again: ``cache=result`` (answered at admission).  Then
+       chaos on that daemon: ``--max-attempts 2`` answers
+       ``[poison_job]`` and ``--deadline 0.7`` ``[deadline_exceeded]``,
+       exit 1 each, and the daemon stays up."""
+    from locust_tpu_torch import obs
+    from locust_tpu_torch.plan import tfidf_plan
+    from locust_tpu_torch.serve import ServeClient, ServeConfig, ServeDaemon
+    from locust_tpu_torch.serve.cache import bucket_blocks
+
+    on_card = env.dev.type == "cuda"
+    report = {"card": env.smi}
+    BL, W, E, K = env.BL, env.W, env.E, env.K
+    work = os.path.join(env.work, "serve")
+    os.makedirs(work, exist_ok=True)
+    env.serve_env = dict(os.environ, LOCUST_SECRET=SERVE_SECRET, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    rng = np.random.default_rng(9)
+
+    def one_block(i: int) -> bytes:
+        """Block i of the corpus with a seeded last line: distinct bytes."""
+        words = b" ".join(b"serve%06d" % w for w in rng.integers(0, 10**6, 4))
+        return b"\n".join(env.lines[i * BL:(i + 1) * BL - 1] + [words]) + b"\n"
+
+    def up_to(nbytes: int, start: int) -> bytes:
+        out, total = [], 0
+        for ln in env.lines[start:]:
+            if total + len(ln) + 1 > nbytes:
+                break
+            out.append(ln)
+            total += len(ln) + 1
+        return b"\n".join(out) + b"\n"
+
+    def oneshot(name: str, corpus: bytes, argv=()) -> bytes:
+        path = os.path.join(work, f"{name}.txt")
+        with open(path, "wb") as f:
+            f.write(corpus)
+        return env.run_cli(f"serve_oneshot_{name}", [*argv, path, *env.cli_extra])
+
+    modes = ("bitonic", "fused")
+    wave_a = [(one_block(i), modes[i % 2], f"t{i % 3}") for i in range(8)]
+    wave_b = [(one_block(8 + i), modes[i % 2], f"t{(8 + i) % 3}") for i in range(4)]
+    fresh = [(one_block(12 + i), modes[i % 2], f"t{i % 3}") for i in range(4)]
+    solo = [(one_block(17 + i), modes[i // 2], "t0") for i in range(4)]
+    cap = env.serve_big_bytes
+    big = [(up_to(cap, 0), "bitonic", "t0"), (up_to(cap, 1), "fused", "t1")]
+    default_job = one_block(16)
+    plan_corpus = b"\n".join(env.lines[:8 * BL]) + b"\n"
+    plan_doc = tfidf_plan(BL).to_doc()
+    big_bucket = [bucket_blocks(-(-len(c.splitlines()) // BL)) for c, _, _ in big]
+
+    # The prediction: a batch of n one-block jobs folds bucket_blocks(n)
+    # blocks (padded job slots fold zero blocks); a big job folds its
+    # bucket; a solo job 1 block; the plan job one sort per block of its
+    # 8; "hash" nothing.
+    want_launches = {
+        "tokenize": 0,
+        "bitonic_sort": bucket_blocks(4) + bucket_blocks(2) + big_bucket[0]
+        + bucket_blocks(2) + 2 + 8,
+        "fused_fold": bucket_blocks(4) + bucket_blocks(2) + big_bucket[1] + bucket_blocks(2)
+        + 2,
+    }
+    want_exec = {"engines": 4, "shapes": 10, "hits": 4, "misses": 10, "builds": 4,
+                 "compiles": 10, "evictions": 0, "fused_on": 1, "fused_demoted": 0}
+    want_results = {"entries": 24, "hits": 13, "misses": 24, "invalidations": 0}
+
+    with phase("the serve daemon in process: one-block bitonic/fused jobs over 3 tenants, 2 "
+               f"jobs at the {cap} B inline cap, repeats, new corpora, hash, a tfidf plan"):
+        log(f"  card: {env.smi}")
+        traced = obs.current() is None
+        if traced:
+            obs.enable(process="serve")
+        first_event = obs.current().event_count()
+        d = ServeDaemon(secret=SERVE_SECRET.encode(), cfg=ServeConfig(
+            max_batch=8, warm_dir=os.path.join(work, "warm_inproc"), dispatch_poll_s=0.005),
+            device=env.dev)
+        d.serve_in_thread()
+        client = ServeClient(d.addr, SERVE_SECRET.encode(), timeout=600.0)
+        answers = []  # (label, corpus, config, reply, status)
+
+        def submit(items, label, paused=True, **kw):
+            if paused:
+                d.scheduler.pause()
+            acks = [(c, m, client.submit(corpus=c, tenant=t, weight=kw.get("weight", 1.0),
+                                         config=dict(env.serve_cfg, sort_mode=m)))
+                    for c, m, t in items]
+            d.scheduler.resume()
+            for c, m, ack in acks:
+                res = client.wait(ack["job_id"], timeout=600.0, poll_s=0.005)
+                answers.append((label, c, m, res, client.status(ack["job_id"])))
+
+        def stream():
+            t0 = time.perf_counter()
+            submit(wave_a, "cold")
+            submit(wave_b, "cold")
+            for item in big:
+                submit([item], "big", weight=2.0)
+            submit(wave_a + wave_b, "repeat")
+            submit(fresh, "warm")
+            for (c, m, t), label in zip(solo, ("solo_cold", "solo_warm") * 2):
+                submit([(c, m, t)], label, paused=False)
+            ack = client.submit(corpus=default_job)
+            answers.append(("hash", default_job, "hash", client.wait(ack["job_id"], timeout=600.0),
+                            client.status(ack["job_id"])))
+            for label in ("plan", "plan_repeat"):
+                ack = client.submit(corpus=plan_corpus, plan=plan_doc,
+                                    config=dict(env.serve_cfg, sort_mode="bitonic"))
+                answers.append((label, plan_corpus, "bitonic",
+                                client.wait(ack["job_id"], timeout=600.0),
+                                client.status(ack["job_id"])))
+            return time.perf_counter() - t0
+
+        try:
+            wall, env.by_path["serve"] = env.counted(stream)
+            stats = client.stats()
+            engines = list(d.executables._engines.values())
+        finally:
+            d.close()
+        spans = collections.defaultdict(float)
+        span_n = collections.Counter()
+        dispatches = []  # (jobs, bucket, ms) of each serve.dispatch span
+        for e in obs.current().to_chrome()["traceEvents"][first_event:]:
+            if e.get("ph") == "X" and e["name"].startswith("serve."):
+                spans[e["name"]] += e["dur"] / 1e3
+                span_n[e["name"]] += 1
+                if e["name"] == "serve.dispatch":
+                    dispatches.append((e["args"]["jobs"], e["args"]["bucket"], e["dur"] / 1e3))
+        if traced:
+            obs.disable()
+        # Every answer against the oracle and the one-shot CLI.
+        checked = {}
+        for label, corpus, mode, res, st in answers:
+            if res.get("plan"):
+                tf, n_docs = oracle_docs(corpus.splitlines(), BL, W, E, K)
+                want = render_tfidf(tf, n_docs)
+                got = res["pairs"][0][0]
+                key = ("plan", corpus)
+                if key not in checked:
+                    checked[key] = oneshot("tfidf", corpus, ["tfidf", "--lines-per-doc", str(BL),
+                                                              "--sort-mode", "bitonic"])
+            else:
+                want = _table(oracle_wordcount(corpus.splitlines(), W, E, K).items())
+                got = _table(res["pairs"])
+                key = ("wc", corpus)
+                if key not in checked:
+                    checked[key] = oneshot(f"wc{len(checked)}", corpus)
+            if got != want or got != checked[key] or res["truncated"]:
+                raise AssertionError(f"serve job ({label}, {mode}): output differs from the "
+                                     f"oracle ({got == want}) or the one-shot CLI "
+                                     f"({got == checked[key]})")
+        labels = collections.Counter((label, res["cache"]) for label, _, _, res, _ in answers)
+        want_labels = collections.Counter({("cold", "cold"): 12, ("big", "cold"): 2,
+                                           ("repeat", "result"): 12, ("warm", "warm"): 4,
+                                           ("solo_cold", "cold"): 2, ("solo_warm", "warm"): 2,
+                                           ("hash", "cold"): 1, ("plan", "cold"): 1,
+                                           ("plan_repeat", "result"): 1})
+        exec_c = stats["exec_cache"]
+        res_c = {k: stats["result_cache"][k] for k in want_results}
+        launches = env.by_path["serve"]
+        report["launches"], report["expected_launches"] = launches, want_launches
+        report["exec_cache"], report["result_cache"] = exec_c, stats["result_cache"]
+        log(f"  {len(answers)} answers == oracle == one-shot CLI ({len(checked)} CLI runs); "
+            f"cache answers {dict(labels)}")
+        log(f"  exec_cache {json.dumps(exec_c)}; result_cache {json.dumps(stats['result_cache'])}")
+        log(f"  launches in the stream: {launches}, expected {want_launches}")
+        if labels != want_labels:
+            raise AssertionError(f"serve cache answers {dict(labels)} != {dict(want_labels)}")
+        if exec_c != want_exec or res_c != want_results:
+            raise AssertionError(f"serve cache counters: exec {exec_c} (want {want_exec}), "
+                                 f"results {res_c} (want {want_results})")
+        if on_card and launches != want_launches:
+            raise AssertionError(f"serve launches {launches} != {want_launches}")
+        # Every engine on the daemon's device; no job retried or failed.
+        devices = {str(getattr(e, "device", None)) for e in engines}
+        if devices != {str(env.dev)} or stats["jobs_by_state"] != {"done": len(answers)} \
+                or any(st["attempts"] for *_, st in answers):
+            raise AssertionError(f"serve engines on {devices}, jobs {stats['jobs_by_state']}, "
+                                 f"attempts {[st['attempts'] for *_, st in answers]}")
+        lat = [float(res["latency_ms"]) for *_, res, _ in answers]
+        by_label = collections.defaultdict(list)
+        for label, _, _, res, st in answers:
+            by_label[label].append(float(res["latency_ms"]))
+        batches = [st["batch_size"] for *_, st in answers if st["batch_size"]]
+        report["stream"] = {
+            "jobs": len(answers), "wall_s": wall, "qps": len(answers) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "mean_batch": sum(batches) / len(batches),
+            "latency_ms_by_kind": {k: {"min": min(v), "median": float(np.median(v)),
+                                       "max": max(v)} for k, v in by_label.items()},
+            "serve_span_ms": dict(spans), "serve_span_count": dict(span_n),
+            "dispatch_ms": [{"jobs": j, "bucket": b, "ms": ms} for j, b, ms in dispatches],
+        }
+        log(f"  stream: {json.dumps(report['stream'])}")
+
+    with phase("the serve daemon as a process: --journal-dir, --warm-dir; a 16 MiB job, "
+               "kill -9 during its dispatch, restart, result --wait; shutdown, restart under "
+               "a serve.dispatch error plan, repeat; --max-attempts 2 -> poison_job, "
+               "--deadline 0.7 -> deadline_exceeded"):
+        jdir, wdir = os.path.join(work, "journal"), os.path.join(work, "warm")
+        big_file = os.path.join(work, "big.txt")
+        with open(big_file, "wb") as f:
+            f.write(big[0][0])
+        want_out = checked[("wc", big[0][0])]
+        dirs = ["--journal-dir", jdir, "--warm-dir", wdir]
+        job_cfg = ["--sort-mode", "bitonic", *env.serve_submit_extra]
+        proc, port, start_s = _start_daemon(env, "serve_daemon", dirs)
+        try:
+            t0 = time.perf_counter()
+            sub = _serve_cli(env, port, ["submit", big_file, "--no-wait", *job_cfg])
+            submit_s = time.perf_counter() - t0
+            job_id = sub.stdout.decode().strip()
+            client = ServeClient(("127.0.0.1", port), SERVE_SECRET.encode(), timeout=60.0)
+            state, polls = "queued", 0
+            while state == "queued":
+                state = client.status(job_id)["state"]
+                polls += 1
+            proc.kill()  # SIGKILL
+            proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        log(f"  daemon up in {start_s:.3f} s; submit --no-wait {submit_s:.3f} s (a client "
+            f"process: no torch); killed -9 with the job {state} after {polls} status polls")
+        if state != "running":
+            raise AssertionError(f"the job was {state} when the daemon was killed, not running")
+        # The replay alone: a daemon in this process on a copy of the
+        # journal, its construction timed against one with no journal.
+        shutil.copytree(jdir, jdir + "_copy")
+        times = {}
+        for name, kw in (("no_journal", {}), ("journal", {"journal_dir": jdir + "_copy"})):
+            t0 = time.perf_counter()
+            d = ServeDaemon(secret=SERVE_SECRET.encode(), cfg=ServeConfig(**kw), device=env.dev)
+            times[name] = time.perf_counter() - t0
+            d.close()
+        replay_s = times["journal"] - times["no_journal"]
+        log(f"  replay alone (in process, a copy of the journal): {replay_s:.4f} s "
+            f"({json.dumps(times)})")
+        proc, port, restart_s = _start_daemon(env, "serve_daemon_replay", dirs)
+        try:
+            t0 = time.perf_counter()
+            res = _serve_cli(env, port, ["result", job_id, "--wait", "--timeout", "600"])
+            result_s = time.perf_counter() - t0
+            if res.stdout != want_out:
+                raise AssertionError("the replayed job's output differs from the one-shot CLI")
+            _serve_cli(env, port, ["shutdown"])
+            proc.wait(timeout=120)
+        finally:
+            _stop_daemon(env, proc, port)
+        log(f"  restart on the journal: listening after {restart_s:.3f} s (replay included), "
+            f"result --wait {result_s:.3f} s later; stdout == one-shot CLI == oracle")
+        # The third start also carries a serve.dispatch error plan: the
+        # repeat is answered from the restored result cache at admission
+        # (no dispatch); then the chaos jobs fail structured.
+        plan = json.dumps({"rules": [{"site": "serve.dispatch", "action": "error"}]})
+        small = os.path.join(work, "small.txt")
+        with open(small, "wb") as f:
+            f.write(wave_a[0][0])
+        proc, port, warm_s = _start_daemon(env, "serve_daemon_warm",
+                                           [*dirs, "--fault-plan", plan])
+        try:
+            again = _serve_cli(env, port, ["submit", big_file, *job_cfg])
+            if again.stdout != want_out or b"cache=result" not in again.stderr:
+                raise AssertionError(f"after a clean restart the job was not a result-cache hit: "
+                                     f"{again.stderr.decode(errors='replace')[-500:]}")
+            log(f"  shutdown, restart ({warm_s:.3f} s), submit again: cache=result, stdout == "
+                "one-shot CLI")
+            codes = {}
+            for flag, code in ((["--max-attempts", "2"], "poison_job"),
+                               (["--deadline", "0.7"], "deadline_exceeded")):
+                out = _serve_cli(env, port, ["submit", small, *flag, *env.serve_submit_extra],
+                                 check=False)
+                err = out.stderr.decode(errors="replace")
+                if out.returncode != 1 or f"error: [{code}]" not in err:
+                    raise AssertionError(f"chaos {flag}: exit {out.returncode}, {err[-500:]}")
+                codes[code] = out.returncode
+            st = json.loads(_serve_cli(env, port, ["stats"]).stdout)
+            if st["jobs_by_state"] != {"done": 1, "failed": 2}:
+                raise AssertionError(f"chaos stats: {st['jobs_by_state']}")
+        finally:
+            _stop_daemon(env, proc, port)
+        log(f"  under a serve.dispatch error plan: {codes} with exit 1 each; the daemon stayed "
+            f"up and answered stats ({st['jobs_by_state']})")
+        report["process"] = {"daemon_start_s": start_s, "submit_no_wait_s": submit_s,
+                             "state_at_kill": state, "replay_s": replay_s,
+                             "restart_to_listening_s": restart_s,
+                             "restart_result_wait_s": result_s, "warm_restart_s": warm_s}
+        report["chaos"] = codes
+    return report
+
+
 ZIPF_BYTES = 256 << 20
 
 
@@ -1818,6 +2197,13 @@ def main() -> int:
         median_s=median_s, cli_extra=[], counted=counted, by_path=by_path, oracle=oracle,
         check_pairs=check_pairs, smi=smi)
     dist_report = distributor_phase(env)
+    from locust_tpu_torch.serve import ServeConfig
+
+    # The serve jobs at the CLI's widths, the large ones at the daemon's
+    # inline cap.
+    env.serve_cfg, env.serve_big_bytes = {}, ServeConfig().max_corpus_bytes
+    env.serve_daemon_extra = env.serve_submit_extra = []
+    serve_report = serve_phase(env)
     plan_phase(env)
     app_mbs = apps_phase(env)
     pagerank_report = pagerank_phase(env)
@@ -2140,7 +2526,7 @@ def main() -> int:
                                           "est_sort_traffic_gb", "achieved_sort_gb_s",
                                           "sort_passes")}
                     for k, r in roof.items()},
-       "attribution": attribution, "distributor": dist_report}
+       "attribution": attribution, "distributor": dist_report, "serve": serve_report}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,7 @@ FETCH_CHUNK_MAX = 32 * 1024 * 1024
 # are the serve tier's scale-out dispatch surface and plan_stage the
 # distributed-plan stage surface.  A worker started without --serve
 # answers the three with a structured error (the port's worker has no
-# serve surface yet: ROADMAP.md queue 1 item 8, the serve slice).
+# serve surface yet: ROADMAP.md queue 1 item 8, the serve slice 10).
 COMMANDS = ("ping", "map", "fetch", "serve_batch", "serve_stats",
             "plan_stage", "shutdown")
 

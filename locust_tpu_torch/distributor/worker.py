@@ -18,8 +18,10 @@ windowed fetch requests down one connection and the worker answers them
 in order from one cached file handle per transfer.
 
 The serve surface (``serve_batch``, ``serve_stats``, ``plan_stage``)
-waits for the serve slice (ROADMAP.md queue 1 item 8): the commands are
-answered with the JAX worker's structured error for a worker started
+waits for the serve slice 10 (ROADMAP.md queue 1 item 8: the worker
+pool, the worker's serve surface, plan/distribute.py and high
+availability; the single-node daemon is ``locust_tpu_torch.serve``): the
+commands are answered with the JAX worker's structured error for a worker started
 without ``--serve``, and ``Worker(serve=True)`` refuses at construction.
 
 Fault sites (utils/faultplan.py): ``rpc.delay`` before a command is
@@ -120,7 +122,8 @@ class Worker:
         if serve:
             raise NotImplementedError(
                 "the worker's serve surface (serve_batch, serve_stats, plan_stage) "
-                "is not ported yet: ROADMAP.md queue 1 item 8, the serve slice"
+                "is not ported yet: ROADMAP.md queue 1 item 8, the serve slice 10 "
+                "(the worker pool, distributed plans and high availability)"
             )
         self.secret = secret
         self.map_runner = map_runner

@@ -32,8 +32,6 @@ import threading
 import time
 import uuid
 
-import torch
-
 from locust_tpu_torch.obs import names as _names
 
 
@@ -71,6 +69,11 @@ class _Span:
     def __exit__(self, *exc):
         for ref in self._sync:
             if ref.device.type == "cuda":
+                # A sync ref is a torch tensor, so torch is loaded by now;
+                # importing it here keeps ``obs`` (and the serve control
+                # plane that imports it) free of torch at import.
+                import torch
+
                 torch.cuda.synchronize(ref.device)
         self._tracer._complete(
             self._name, self._t0, time.time() - self._t0, self._args

@@ -37,8 +37,10 @@ The port fires these sites:
                    (backend.guarded_dispatch)       ctx: block, backend
 
 The registry keeps every site of the JAX package, so a plan written for
-either package parses in both; the serve and plan sites (``serve.*``,
-``plan.*``) fire once the serve slice is ported.
+either package parses in both.  The serve daemon (``locust_tpu_torch.
+serve``) fires ``serve.admit``, ``serve.dispatch`` and ``serve.journal``;
+``serve.place``, ``serve.ship`` and the ``plan.*`` sites fire once the
+serve slice 10 (ROADMAP.md queue 1 item 8) is ported.
 
 Determinism: rule bookkeeping is pure counting (``after`` skips,
 ``times`` caps), and the probabilistic gate and byte mutations derive

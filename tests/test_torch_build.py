@@ -174,3 +174,59 @@ def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
             names.add(node.module.split(".")[0])
     assert "locust_tpu_torch" in names and "torch" in names
     assert not names & {"jax", "jaxlib", "locust_tpu"}, names
+
+
+def test_chip_smoke_serve_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
+    """``serve_phase`` end to end at small shapes on the CPU (the daemon
+    in process, as processes killed -9 and replayed, under chaos), the
+    plain versions counted as launches: its predicted launch counts,
+    cache answers and counters hold here as they must on the card."""
+    import contextlib
+    import io
+    import types
+
+    import torch
+
+    from locust_tpu_torch import cli
+    from locust_tpu_torch.ops.kernels import fused_fold, sort, tokenize
+
+    smoke = _smoke_module()
+    wrappers = {"tokenize": (tokenize, "tokenize_reference", tokenize.tokenize_block_kernel),
+                "bitonic_sort": (sort, "bitonic_reference", sort.bitonic_sort_rows),
+                "fused_fold": (fused_fold, "fused_preagg_reference", fused_fold.fused_block_preagg)}
+    for mod, ref, wrapper in wrappers.values():
+        def plain(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
+            _w.launches += 1
+            return _ref(*a, **k)
+
+        monkeypatch.setattr(mod, ref, plain)
+
+    by_path = {}
+
+    def counted(fn):
+        for _, _, w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return out, {name: w.launches for name, (_, _, w) in wrappers.items()}
+
+    def run_cli(name, argv):
+        out = io.BytesIO()
+        stdout = io.TextIOWrapper(out, write_through=True)
+        with contextlib.redirect_stdout(stdout):
+            rc, by_path[name] = counted(lambda: cli.main(argv))
+        assert rc == 0, argv
+        return out.getvalue()  # before the wrapper, and with it `out`, is closed
+
+    bl = 128
+    lines, _ = smoke.replicated_corpus(1 << 20)
+    env = types.SimpleNamespace(
+        torch=torch, dev=torch.device("cpu"), lines=lines, BL=bl, W=128, E=20, K=32,
+        work=str(tmp_path), run_cli=run_cli, counted=counted, by_path=by_path, smi="cpu",
+        cli_extra=["--backend", "cpu", "--block-lines", str(bl)], serve_cfg={"block_lines": bl},
+        serve_big_bytes=200_000, serve_daemon_extra=["--backend", "cpu"],
+        serve_submit_extra=["--block-lines", str(bl)])
+    report = smoke.serve_phase(env)
+    assert report["launches"] == report["expected_launches"] == {
+        "tokenize": 0, "bitonic_sort": 4 + 2 + 32 + 2 + 2 + 8, "fused_fold": 4 + 2 + 32 + 2 + 2}
+    assert report["process"]["state_at_kill"] == "running"
+    assert report["chaos"] == {"poison_job": 1, "deadline_exceeded": 1}

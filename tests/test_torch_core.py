@@ -192,14 +192,40 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "            'io.native_ingest', 'io.corpus', 'utils.roofline', 'utils.profiling',\n"
         "            'utils.checks', 'utils.faultplan', 'obs.attribution', 'backend',\n"
         "            'distributor', 'distributor.protocol', 'distributor.worker',\n"
-        "            'distributor.master', 'distributor.microbench'):\n"
+        "            'distributor.master', 'distributor.microbench', 'serve', 'serve.jobs',\n"
+        "            'serve.scheduler', 'serve.cache', 'serve.batch', 'serve.journal',\n"
+        "            'serve.client', 'serve.daemon', 'serve.__main__'):\n"
         "    assert 'locust_tpu_torch.' + sub in names, sub\n"
         "import locust_tpu_torch.distributor.protocol, locust_tpu_torch.distributor.worker\n"
         "import locust_tpu_torch.distributor.master, locust_tpu_torch.distributor.microbench\n"
         "import locust_tpu_torch.backend\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'locust_tpu.')) or m == 'locust_tpu')\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
+    )
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_serve_control_plane_imports_without_torch():
+    """``locust_tpu_torch.serve``, its client and its caches import
+    without torch (and without jax): a ``submit`` or ``stats`` against a
+    running daemon must not pay torch's import."""
+    code = (
+        "import sys\n"
+        "import locust_tpu_torch.serve, locust_tpu_torch.serve.client, locust_tpu_torch.serve.cache\n"
+        "import locust_tpu_torch.serve.__main__\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'locust_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
     )
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     out = subprocess.run(

@@ -127,11 +127,11 @@ def test_worker_refuses_serve_until_the_serve_slice(capsys, monkeypatch):
     structured error, never by accepting them."""
     from locust_tpu_torch.distributor import worker as worker_mod
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8, the serve slice 10"):
         Worker(secret=SECRET, serve=True)
     monkeypatch.setenv("LOCUST_SECRET", "s")
     assert worker_mod.main(["--port", "0", "--serve"]) == 2
-    assert "serve slice" in capsys.readouterr().err
+    assert "serve slice 10" in capsys.readouterr().err
     w = Worker(secret=SECRET)
     w.serve_in_thread()
     try:

@@ -2,8 +2,8 @@
 package: canonical JSON and fingerprints of the four builders, a join
 plan and random plans; validation and lowering errors; the optimizer's
 four rewrite rules, identity-pinned; the sub-plan cache branch and
-``incremental_fold`` through ``run_corpus`` with a JAX ``SubPlanCache``
-per package; every plan's rendered bytes; and ``mesh=True`` refused."""
+``incremental_fold`` through ``run_corpus`` with each package's own
+``SubPlanCache`` (entries and counters equal); every plan's rendered bytes; and ``mesh=True`` refused."""
 
 import dataclasses
 import hashlib
@@ -16,13 +16,14 @@ from locust_tpu import plan as jplan
 from locust_tpu.plan import optimize as joptimize
 from locust_tpu.plan.compile import compile_plan as jcompile
 from locust_tpu.plan.optimize import incremental_delta as jdelta
-from locust_tpu.serve.cache import SubPlanCache
+from locust_tpu.serve.cache import SubPlanCache as JSubPlanCache
 from locust_tpu_torch import plan as tplan
 from locust_tpu_torch.config import EngineConfig as TConfig
 from locust_tpu_torch.core.bytes_ops import strings_to_rows
 from locust_tpu_torch.plan import optimize as toptimize
 from locust_tpu_torch.plan.compile import compile_plan as _tcompile
 from locust_tpu_torch.plan.optimize import incremental_delta, record_rewrite
+from locust_tpu_torch.serve.cache import SubPlanCache
 from test_plan import CFG as JCFG
 from test_plan import LINES, _chain_templates
 
@@ -258,11 +259,21 @@ def test_finalize_false_timed_and_stream_passthrough(tmp_path):
     assert ck.value == res.to_host_pairs() == _jax_run("wordcount", LINES).value
 
 
-def _cached_runs(compile_fn, pkg, cfg, plan_name, corpora):
-    sub = SubPlanCache()
+def _cached_runs(compile_fn, pkg, cfg, plan_name, corpora, entries=False):
+    """Outputs and cache counters over ``corpora`` through one sub-plan
+    cache: the JAX package's for the JAX compiler, the port's own for
+    the port's."""
+    sub = (JSubPlanCache if pkg is jplan else SubPlanCache)()
     cp = compile_fn(PLANS[plan_name](pkg), cfg)
     outs = [cp.run_corpus(c, sub_cache=sub).output for c in corpora]
+    if entries:
+        return outs, sub.stats(), {k: _entry_view(e) for k, e in sub._entries.items()}
     return outs, sub.stats()
+
+
+def _entry_view(ent: dict) -> dict:
+    """A cache entry with its fold value as plain Python."""
+    return {k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in ent.items()}
 
 
 @pytest.mark.parametrize("plan_name", ["wordcount", "tfidf"])
@@ -287,6 +298,16 @@ def test_index_plan_reuses_only_exact_hits():
     want, jstats = _cached_runs(jcompile, jplan, JCFG, "index", corpora)
     got, tstats = _cached_runs(tcompile, tplan, TCFG, "index", corpora)
     assert got == want and tstats == jstats and tstats["incremental_hits"] == 0
+
+
+def test_port_subplan_cache_entries_equal_the_jax_cache():
+    """The same cached runs leave the same entries (keys, values,
+    corpus accounting, byte estimates) in the port's cache as in the
+    JAX package's."""
+    corpora = [CORPUS, CORPUS + b"eta theta\n"]
+    want = _cached_runs(jcompile, jplan, JCFG, "wordcount", corpora, entries=True)
+    got = _cached_runs(tcompile, tplan, TCFG, "wordcount", corpora, entries=True)
+    assert got == want and len(got[2]) == 2
 
 
 def test_incremental_delta_guards_equal_jax():
