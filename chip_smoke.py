@@ -82,14 +82,28 @@ with a journal and a warm dir, killed -9 during a 16 MiB job's dispatch,
 restarted (the replay timed alone too), the job's ``result --wait``
 byte for byte the one-shot CLI's, a clean restart answering it from the
 result cache, and structured ``poison_job`` and ``deadline_exceeded``
-answers under a ``serve.dispatch`` error plan.  The kernels'
+answers under a ``serve.dispatch`` error plan.  Then the serve tier's
+scale-out and high availability: ``python -m locust_tpu_torch.serve
+--workers A,B --shard-min-blocks 16`` over 2 ``python -m
+locust_tpu_torch.distributor.worker --serve`` processes sharing the
+card: one-block ``bitonic`` and ``fused`` jobs through ``serve_batch``
+(repeats warm by affinity), a 16 MiB job sharded over both workers,
+distributed ``tfidf``, ``index``, join-tree and PageRank plans (the
+first three byte for byte the one-shot CLI's or the solo engine's,
+PageRank within a stated tolerance), a worker killed -9 inside a
+``serve_batch`` and its job retried on the survivor; then a primary
+with ``--journal-dir --ship-to`` killed -9 while a 16 MiB job runs, the
+``--standby-of --lease`` standby promoted by its lease and answering
+the job under its original id, and a ship of the old epoch refused with
+``stale_epoch``.  The kernels'
 launch counters are set to 0
 just before each path and read just after it; each path must launch each
 kernel exactly as often as its blocks demand.  A distributed job's
 processes run under this script's counting wrapper (``chip_smoke.py
 --counted-child LOG MODULE ARGS``), which appends each process's counts
-to LOG as it ends; LOG is emptied just before the job and read just
-after it.  The ``kernels`` line
+to LOG as it ends (a ``--serve`` worker appends after each command that
+launched a kernel, so a worker killed -9 keeps its finished commands'
+counts); LOG is emptied just before the job and read just after it.  The ``kernels`` line
 reports each kernel's count on its CLI path as ``launches`` and every
 path's in ``launches_by_path``.
 
@@ -740,33 +754,99 @@ def _counted(log_path: str, module: str) -> list[str]:
     return [sys.executable, os.path.abspath(__file__), "--counted-child", log_path, module]
 
 
+# Set in a rehearsal on the CPU: a counted child then counts each call of
+# a kernel's plain version as its launch, as the rehearsal's own process does.
+COUNT_PLAIN_ENV = "CHIP_SMOKE_COUNT_PLAIN"
+
+
+def _launch_counts() -> dict:
+    """Each kernel wrapper's launch count in this process, and on the card
+    the process's peak reserved device memory."""
+    from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
+    from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
+    from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
+
+    out = {"tokenize": tokenize_block_kernel.launches,
+           "bitonic_sort": bitonic_sort_rows.launches,
+           "fused_fold": fused_block_preagg.launches}
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
+        out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+    return out
+
+
+def _count_plain_versions() -> None:
+    """Count a call of each kernel's plain version as a launch of its wrapper
+    (the rehearsal on the CPU, where the wrappers launch nothing)."""
+    from locust_tpu_torch.ops.kernels import fused_fold, sort, tokenize
+
+    for mod, ref, wrapper in ((tokenize, "tokenize_reference", tokenize.tokenize_block_kernel),
+                              (sort, "bitonic_reference", sort.bitonic_sort_rows),
+                              (fused_fold, "fused_preagg_reference",
+                               fused_fold.fused_block_preagg)):
+        def plain(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
+            _w.launches += 1
+            return _ref(*a, **k)
+
+        setattr(mod, ref, plain)
+
+
+def _append_launch_line(log_path: str, fields: dict) -> None:
+    # One ``write`` to a file opened for appending, so the lines of
+    # concurrent processes do not interleave.
+    with open(log_path, "a", encoding="utf-8") as f:
+        f.write(json.dumps(fields) + "\n")
+
+
+def _log_worker_commands(log_path: str, module: str, args: list[str], worker_cls) -> None:
+    """Make each command a worker handles append the kernel launches it
+    made (its delta since the last line) to LOG, so a worker killed -9
+    leaves the counts of every command it finished."""
+    import threading
+
+    lock = threading.Lock()
+    last = {"tokenize": 0, "bitonic_sort": 0, "fused_fold": 0}
+    handle = worker_cls._handle
+
+    def counted_handle(self, req, files=None):
+        try:
+            return handle(self, req, files)
+        finally:
+            with lock:
+                now = _launch_counts()
+                delta = {k: now[k] - last[k] for k in last}
+                if any(delta.values()):
+                    last.update({k: now[k] for k in last})
+                    _append_launch_line(log_path, {
+                        "module": module, "argv": args, "pid": os.getpid(),
+                        "cmd": req.get("cmd"), **delta,
+                        "max_memory_reserved": now.get("max_memory_reserved")})
+
+    worker_cls._handle = counted_handle
+
+
 def _counted_child(log_path: str, module: str, args: list[str]) -> int:
     """``chip_smoke.py --counted-child LOG MODULE ARGS...``: a process of
-    the distributor phase.  Runs ``MODULE.main(ARGS)``, then appends one
-    JSON line to LOG: MODULE, ARGS and each kernel wrapper's launch count
-    in this process (one ``write`` to a file opened for appending, so the
-    lines of concurrent processes do not interleave).  A worker runs each
-    of its maps as such a child of ``locust_tpu_torch.cli``; it launches
-    no kernel itself and appends nothing."""
+    the distributor, serve-pool or failover phase.  Runs
+    ``MODULE.main(ARGS)``, then appends one JSON line to LOG: MODULE, ARGS
+    and each kernel wrapper's launch count in this process.  A worker runs
+    each of its maps as such a child of ``locust_tpu_torch.cli``, and
+    appends a line for each command it handles that launched a kernel (a
+    ``--serve`` worker's folds), none for the others."""
     import importlib
 
+    if os.environ.get(COUNT_PLAIN_ENV):
+        _count_plain_versions()
     mod = importlib.import_module(module)
     if module == "locust_tpu_torch.distributor.worker":
         mod.MAP_COMMAND = tuple(_counted(log_path, "locust_tpu_torch.cli"))
+        _log_worker_commands(log_path, module, args, mod.Worker)
         return mod.main(args)
     try:
         return mod.main(args)
     finally:
-        from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
-        from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
-        from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
-
-        line = json.dumps({"module": module, "argv": args, "pid": os.getpid(),
-                           "tokenize": tokenize_block_kernel.launches,
-                           "bitonic_sort": bitonic_sort_rows.launches,
-                           "fused_fold": fused_block_preagg.launches})
-        with open(log_path, "a", encoding="utf-8") as f:
-            f.write(line + "\n")
+        _append_launch_line(log_path, {"module": module, "argv": args, "pid": os.getpid(),
+                                       **_launch_counts()})
 
 
 def _start_worker(env, name: str, plan: dict | None = None):
@@ -795,13 +875,13 @@ def _start_worker(env, name: str, plan: dict | None = None):
         raise AssertionError(f"worker {name} did not start: {f.read()[-2000:]!r}")
 
 
-def _stop_workers(workers) -> None:
+def _stop_workers(workers, secret: str = DIST_SECRET) -> None:
     """Shut each worker down over the wire, then make sure it exited."""
     from locust_tpu_torch.distributor import master
 
     for proc, addr in workers:
         try:
-            master.rpc(addr, {"cmd": "shutdown"}, DIST_SECRET.encode(), timeout=10)
+            master.rpc(addr, {"cmd": "shutdown"}, secret.encode(), timeout=10)
         except (OSError, ValueError, PermissionError):
             pass
     for proc, _ in workers:
@@ -1089,15 +1169,17 @@ def _table(pairs) -> bytes:
     return b"".join(k + b"\t" + str(v).encode() + b"\n" for k, v in sorted(pairs))
 
 
-def _start_daemon(env, name: str, args: list[str]):
-    """``python -m locust_tpu_torch.serve --port 0 ARGS`` as a process, its
-    stderr in a file; returns ``(proc, port, seconds to listening)``."""
+def _start_daemon(env, name: str, args: list[str], counted_log: str | None = None):
+    """``python -m locust_tpu_torch.serve --port 0 ARGS`` as a process (under
+    the counting wrapper, appending to ``counted_log``, when one is given),
+    its stderr in a file; returns ``(proc, port, seconds to listening)``."""
     err_path = os.path.join(env.work, f"{name}.stderr")
+    cmd = ([sys.executable, "-m", "locust_tpu_torch.serve"] if counted_log is None
+           else _counted(counted_log, "locust_tpu_torch.serve.__main__"))
     t0 = time.perf_counter()
     with open(err_path, "wb") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "locust_tpu_torch.serve", "--port", "0",
-             *env.serve_daemon_extra, *args],
+            [*cmd, "--port", "0", *env.serve_daemon_extra, *args],
             cwd=HERE, env=env.serve_env, stdout=subprocess.DEVNULL, stderr=err)
     deadline = time.monotonic() + 300
     while time.monotonic() < deadline:
@@ -1445,6 +1527,456 @@ def serve_phase(env) -> dict:
                              "restart_to_listening_s": restart_s,
                              "restart_result_wait_s": result_s, "warm_restart_s": warm_s}
         report["chaos"] = codes
+    return report
+
+
+def _start_serve_worker(env, name: str, log_path: str, plan: dict | None = None):
+    """One port ``--serve`` worker as a process under the counting wrapper
+    (a line per command that launched a kernel), its stderr in a file;
+    returns ``(proc, "host:port", seconds to listening)``."""
+    cmd = [*_counted(log_path, "locust_tpu_torch.distributor.worker"), "--serve", "--port", "0",
+           "--workdir", env.pool_tmp, *env.serve_daemon_extra]
+    if plan is not None:
+        cmd += ["--fault-plan", json.dumps(plan)]
+    err_path = os.path.join(env.work, f"{name}.stderr")
+    t0 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env.serve_env, stdout=subprocess.DEVNULL,
+                                stderr=err)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        with open(err_path, "rb") as f:
+            m = re.search(rb"listening on ([\d.]+):(\d+)", f.read())
+        if m:
+            return proc, f"{m.group(1).decode()}:{int(m.group(2))}", time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.02)
+    proc.kill()
+    proc.wait(timeout=30)
+    with open(err_path, "rb") as f:
+        raise AssertionError(f"serve worker {name} did not start: {f.read()[-2000:]!r}")
+
+
+def web_graph_edges(max_bytes: int, seed: int = 20) -> tuple[bytes, int, np.ndarray, np.ndarray]:
+    """The largest prefix of ``synthetic_web_graph``'s edge list whose
+    ``src dst`` lines fit ``max_bytes``: (bytes, nodes it names, src, dst)."""
+    _, src, dst = synthetic_web_graph(seed)
+    lines = [f"{a} {b}\n".encode() for a, b in zip(src.tolist(), dst.tolist())]
+    ends = np.cumsum([len(ln) for ln in lines])
+    e = int(np.searchsorted(ends, max_bytes, side="right"))
+    src, dst = src[:e], dst[:e]
+    return b"".join(lines[:e]), int(max(src.max(), dst.max())) + 1, src, dst
+
+
+def _rank_values(rendered: bytes) -> np.ndarray:
+    return np.array([float(r.split(b"\t")[1]) for r in rendered.splitlines()])
+
+
+def pool_phase(env) -> dict:
+    """The serve tier's scale-out and high availability on the card.
+
+    1. ``python -m locust_tpu_torch.serve --workers A,B --shard-min-blocks
+       16`` over 2 ``python -m locust_tpu_torch.distributor.worker --serve``
+       processes, all sharing the card, every process under the counting
+       wrapper: one-block ``bitonic`` and ``fused`` jobs in turn through
+       ``serve_batch`` (the second of each mode lands warm on the first
+       worker by affinity), and a job at the inline cap sharded over both
+       workers and merged on the daemon's card.
+    2. Distributed plans over the same pool: ``tfidf`` and ``index`` under
+       ``bitonic`` (kernel B in the tf fold of each map split), a join tree
+       of two WordCount folds under ``fused`` (kernel C in each map split)
+       and its repeat (the workers' fold-node engines warm, their
+       ``compiles`` flat), and PageRank over the largest prefix of the
+       seeded web graph whose edge list fits the inline cap.  The first
+       three equal the port's one-shot CLI or solo engine byte for byte;
+       PageRank's ranks are held to the solo engine and a float64 oracle
+       within a stated tolerance (the card's ``index_add_`` adds in no
+       fixed order).
+    3. The first worker holds its next ``serve_batch`` 3 s (``rpc.delay``)
+       and is killed -9 while it holds it; the job is retried on the
+       survivor and answers exactly.  The kernel B and C launches summed
+       over the daemon and the workers equal the prediction.
+    4. Failover: a primary with ``--journal-dir --ship-to`` (its dispatch
+       held by a ``serve.dispatch`` delay) and a standby with
+       ``--journal-dir --standby-of --lease``; a job at the inline cap
+       submitted with ``--no-wait``, the primary killed -9 while it is
+       running, the standby promoted by its lease, the job answered under
+       its original id byte for byte as the one-shot CLI, and a ship of
+       the old epoch refused with ``stale_epoch``."""
+    from locust_tpu_torch.config import EngineConfig
+    from locust_tpu_torch.distributor import master
+    from locust_tpu_torch.plan import index_plan, pagerank_plan, tfidf_plan
+    from locust_tpu_torch.plan.compile import compile_plan
+    from locust_tpu_torch.plan.nodes import Plan, node
+    from locust_tpu_torch.serve import ServeClient
+    from locust_tpu_torch.serve.cache import bucket_blocks
+    from locust_tpu_torch.serve.pool import shard_ranges
+
+    on_card = env.dev.type == "cuda"
+    BL, W, E, K = env.BL, env.W, env.E, env.K
+    secret = SERVE_SECRET.encode()
+    work = os.path.join(env.work, "pool")
+    env.pool_tmp = os.path.join(work, "tmp")  # the daemons' TMPDIR, the workers' workdir
+    os.makedirs(env.pool_tmp, exist_ok=True)
+    env.serve_env = dict(os.environ, LOCUST_SECRET=SERVE_SECRET, TMPDIR=env.pool_tmp,
+                         PYTHONPATH=os.pathsep.join(
+                             p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    log_path = os.path.join(work, "launches.jsonl")
+    kernels = ("tokenize", "bitonic_sort", "fused_fold")
+    report = {"card": env.smi}
+    rng = np.random.default_rng(10)
+
+    def one_block(i: int) -> bytes:
+        words = b" ".join(b"pool%06d" % w for w in rng.integers(0, 10**6, 4))
+        return b"\n".join(env.lines[(40 + i) * BL:(41 + i) * BL - 1] + [words]) + b"\n"
+
+    def up_to(nbytes: int, start: int) -> bytes:
+        out, total = [], 0
+        for ln in env.lines[start:]:
+            if total + len(ln) + 1 > nbytes:
+                break
+            out.append(ln)
+            total += len(ln) + 1
+        return b"\n".join(out) + b"\n"
+
+    def write(name: str, data: bytes) -> str:
+        path = os.path.join(work, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    def oneshot(name: str, corpus: bytes, argv=()) -> bytes:
+        return env.run_cli(f"pool_oneshot_{name}", [*argv, write(f"{name}.txt", corpus),
+                                                     *env.cli_extra])
+
+    def wc_want(name: str, corpus: bytes) -> bytes:
+        want = _table(oracle_wordcount(corpus.splitlines(), W, E, K).items())
+        if oneshot(name, corpus) != want:
+            raise AssertionError(f"pool {name}: the one-shot CLI differs from the oracle")
+        return want
+
+    def launches() -> dict:
+        lines = _launch_lines(log_path)
+        return {k: sum(ln[k] for ln in lines) for k in kernels}, lines
+
+    big = up_to(env.serve_big_bytes, 2)
+    big_lines = len(big.splitlines())
+    big_blocks = -(-big_lines // BL)
+    floor = env.pool_shard_min_blocks  # a plan or a job of this many blocks distributes
+    plan_corpus = b"\n".join(env.lines[:floor * BL]) + b"\n"
+    jobs1 = [(one_block(i), m) for i, m in enumerate(("bitonic", "bitonic", "fused", "fused"))]
+    kill_corpus = one_block(4)
+
+    with phase("the serve pool: a daemon with --workers over 2 --serve workers on the card, "
+               "one-block bitonic/fused jobs by affinity, a job at the inline cap sharded, "
+               "distributed tfidf/index/join/pagerank plans, a worker killed -9 mid-batch"):
+        log(f"  card: {env.smi}")
+        open(log_path, "w").close()  # every count to 0 just before the pool's processes start
+        # Worker 0 holds its 6th serve_batch (after the 4 one-block jobs
+        # and its shard of the big job) 3 s: the kill lands inside it,
+        # before it folds anything.
+        hold = {"seed": 7, "rules": [{"site": "rpc.delay", "action": "delay", "delay_s": 3.0,
+                                      "match": {"cmd": "serve_batch"}, "after": 5,
+                                      "times": 1}]}
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(_start_serve_worker, env, "pool_worker0", log_path, hold),
+                    ex.submit(_start_serve_worker, env, "pool_worker1", log_path)]
+            workers = [f.result() for f in futs]
+        names = [w[1] for w in workers]
+        proc = None
+        try:
+            proc, port, daemon_s = _start_daemon(
+                env, "pool_daemon", ["--workers", ",".join(names), "--shard-min-blocks", str(floor)],
+                counted_log=log_path)
+            client = ServeClient(("127.0.0.1", port), secret, timeout=600.0)
+
+            def settle():
+                """Until no placement is held (a finished job's slot is
+                released just after its answer)."""
+                deadline = time.monotonic() + 60
+                while client.stats()["pool"]["inflight"] != [0, 0]:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("pool placements still held after 60 s")
+                    time.sleep(0.01)
+
+            def run(corpus: bytes, config: dict, **kw):
+                t0 = time.perf_counter()
+                ack = client.submit(corpus=corpus, config=config, **kw)
+                res = client.wait(ack["job_id"], timeout=600.0, poll_s=0.005)
+                wall = time.perf_counter() - t0
+                st = client.status(ack["job_id"])
+                settle()
+                return res, st, wall
+
+            answers = []
+            for i, (c, m) in enumerate(jobs1):
+                res, st, wall = run(c, dict(env.serve_cfg, sort_mode=m))
+                if _table(res["pairs"]) != wc_want(f"one{i}", c):
+                    raise AssertionError(f"pool one-block job {i} ({m}) differs from the "
+                                         "one-shot CLI")
+                answers.append({"mode": m, "cache": res["cache"], "placed_on": st["placed_on"],
+                                "latency_ms": float(res["latency_ms"]), "wall_s": wall})
+            want_place = [(names[0], "cold"), (names[0], "warm")] * 2
+            if [(a["placed_on"], a["cache"]) for a in answers] != want_place:
+                raise AssertionError(f"pool placements {answers}, expected {want_place}")
+            log(f"  4 one-block jobs through serve_batch == oracle == one-shot CLI: "
+                f"{json.dumps(answers)}")
+            res, st, big_wall = run(big, dict(env.serve_cfg, sort_mode="bitonic"))
+            big_want = wc_want("big", big)
+            ranges = shard_ranges(big_lines, BL, 2)
+            if (_table(res["pairs"]) != big_want or res["cache"] != "shard" or st["shards"] != 2
+                    or st["placed_on"] != "shard:" + ",".join(names)):
+                raise AssertionError(f"pool big job: cache {res['cache']}, {st['shards']} "
+                                     f"shards on {st['placed_on']}, equal "
+                                     f"{_table(res['pairs']) == big_want}")
+            shard = {"bytes": len(big), "lines": big_lines, "blocks": big_blocks,
+                     "ranges": ranges, "latency_ms": float(res["latency_ms"]),
+                     "wall_s": big_wall}
+            log(f"  a {len(big)} B job ({big_blocks} blocks) sharded over both workers as "
+                f"line ranges {ranges}, merged on the daemon: == oracle == one-shot CLI; "
+                f"latency {shard['latency_ms']:.3f} ms, client wall {big_wall:.3f} s")
+
+            # Distributed plans.
+            plan_ranges = shard_ranges(len(plan_corpus.splitlines()), BL, 2)
+            bit_cfg = dict(env.serve_cfg, sort_mode="bitonic")
+            fused_cfg = dict(env.serve_cfg, sort_mode="fused")
+            join = Plan((
+                node("c1", "source", "text"),
+                node("m1", "map", "tokenize_count", ("c1",)),
+                node("s1", "shuffle", "by_key", ("m1",)),
+                node("r1", "reduce", "sum", ("s1",)),
+                node("c2", "source", "text"),
+                node("m2", "map", "tokenize_count", ("c2",)),
+                node("s2", "shuffle", "by_key", ("m2",)),
+                node("r2", "reduce", "sum", ("s2",)),
+                node("j1", "join", "inner", ("r1", "r2"), combine="sum"),
+                node("out", "sink", "table", ("j1",)),
+            ))
+            solo_join = compile_plan(join, EngineConfig(**fused_cfg), device=env.dev) \
+                .run_corpus(plan_corpus).output
+            # Four blocks a document: the tf fold's pair table holds the
+            # plan corpus's (word, doc) pairs at any block size.
+            lpd = 4 * BL
+            tf, n_docs = oracle_docs(plan_corpus.splitlines(), lpd, W, E, K)
+            edges, n_nodes, e_src, e_dst = web_graph_edges(env.serve_big_bytes)
+            iters, damping = 3, 0.85
+            plans = (
+                ("tfidf", tfidf_plan(lpd), plan_corpus, bit_cfg,
+                 oneshot("tfidf", plan_corpus, ["tfidf", "--lines-per-doc", str(lpd),
+                                                 "--sort-mode", "bitonic"]),
+                 render_tfidf(tf, n_docs)),
+                ("index", index_plan(lpd), plan_corpus, bit_cfg,
+                 oneshot("index", plan_corpus, ["index", "--lines-per-doc", str(lpd),
+                                                 "--sort-mode", "bitonic"]),
+                 render_postings(tf)),
+                ("join", join, plan_corpus, fused_cfg, solo_join, None),
+                ("join_repeat", join, plan_corpus, fused_cfg, solo_join, None),
+                ("pagerank", pagerank_plan(iters, damping=damping), edges, dict(env.serve_cfg),
+                 None, None),
+            )
+
+            def worker_compiles() -> list:
+                return [master.rpc(tuple([n.split(":")[0], int(n.split(":")[1])]),
+                                   {"cmd": "serve_stats"}, secret, timeout=60)
+                        ["exec_cache"]["compiles"] for n in names]
+
+            plan_report = {}
+            for name, plan, corpus, cfg_ovr, want, oracle_bytes in plans:
+                before = client.stats()["pool"]["plan"]
+                compiles0 = worker_compiles()
+                res, st, wall = run(corpus, cfg_ovr, plan=plan.to_doc(), no_cache=True)
+                after = client.stats()["pool"]["plan"]
+                got = res["pairs"][0][0]
+                if not res.get("plan") or not st["placed_on"].startswith("plan:") \
+                        or res["cache"] != "distributed":
+                    raise AssertionError(f"pool plan {name}: placed on {st['placed_on']}, cache "
+                                         f"{res['cache']}: not distributed")
+                row = {"latency_ms": float(res["latency_ms"]), "wall_s": wall,
+                       "placed_on": st["placed_on"], "shards": st["shards"],
+                       "stages": after["stages"] - before["stages"],
+                       "map_warm_hits": after["map_warm_hits"] - before["map_warm_hits"],
+                       "worker_compiles": [b - a for a, b in zip(compiles0, worker_compiles())]}
+                if name == "pagerank":
+                    solo = compile_plan(plan, EngineConfig(**cfg_ovr), device=env.dev) \
+                        .run_corpus(corpus).output
+                    got_r, solo_r = _rank_values(got), _rank_values(solo)
+                    ref = pagerank_oracle(e_src, e_dst, n_nodes, iters, damping)
+                    # Within 1e-5 of the largest rank; two rendered ranks
+                    # may differ by one more unit of their 8th decimal.
+                    tol = 1e-5 * float(ref.max())
+                    d_solo = float(np.abs(got_r - solo_r).max())
+                    d_ref = float(np.abs(got_r - ref).max())
+                    differ = sum(a != b for a, b in zip(got.splitlines(), solo.splitlines()))
+                    row.update({"nodes": n_nodes, "edges": int(len(e_src)), "iters": iters,
+                                "edge_list_bytes": len(edges), "tolerance": tol,
+                                "max_abs_delta_vs_solo": d_solo,
+                                "max_abs_delta_vs_float64_oracle": d_ref,
+                                "lines_differing_from_solo": differ})
+                    if len(got_r) != n_nodes or not np.isfinite(got_r).all() \
+                            or d_solo > tol + 1.001e-8 or d_ref > tol + 5e-9:
+                        raise AssertionError(f"pool pagerank: {json.dumps(row)}")
+                    if not on_card and got != solo:
+                        raise AssertionError("pool pagerank on the CPU differs from the solo "
+                                             "engine's bytes")
+                elif got != want or (oracle_bytes is not None and got != oracle_bytes):
+                    raise AssertionError(f"pool plan {name}: differs from the solo engine / "
+                                         f"one-shot CLI ({got == want}) or the oracle")
+                plan_report[name] = row
+                log(f"  plan {name}: {json.dumps(row)}")
+            if plan_report["join_repeat"]["worker_compiles"] != [0, 0] \
+                    or plan_report["join_repeat"]["map_warm_hits"] != len(plan_ranges):
+                raise AssertionError(f"the repeated join plan was not warm on the workers: "
+                                     f"{plan_report['join_repeat']}")
+            if client.stats()["pool"]["plan"]["plan_solo_fallbacks"] != 0:
+                raise AssertionError("a pool plan was demoted to the daemon's solo engine")
+            if on_card:
+                smi_apps = _run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                 "--format=csv,noheader"])
+                report["nvidia_smi_compute_apps"] = smi_apps
+                log(f"  per-process device memory (nvidia-smi): {smi_apps!r}")
+
+            # Worker 0 killed -9 while it holds a serve_batch.
+            t0 = time.perf_counter()
+            ack = client.submit(corpus=kill_corpus, config=dict(env.serve_cfg,
+                                                                sort_mode="bitonic"))
+            deadline = time.monotonic() + 60
+            while True:
+                st = client.status(ack["job_id"])
+                if st["state"] == "running" and st["placed_on"] == names[0]:
+                    break
+                if time.monotonic() > deadline or st["state"] not in ("queued", "running"):
+                    raise AssertionError(f"the held job never ran on worker 0: {st}")
+                time.sleep(0.01)
+            time.sleep(0.5)
+            workers[0][0].kill()  # SIGKILL
+            workers[0][0].wait(timeout=30)
+            res = client.wait(ack["job_id"], timeout=600.0)
+            kill_wall = time.perf_counter() - t0
+            st = client.status(ack["job_id"])
+            if (_table(res["pairs"]) != wc_want("kill", kill_corpus) or st["placed_on"] != names[1]
+                    or st["attempts"] < 1):
+                raise AssertionError(f"the job of the killed worker: placed on "
+                                     f"{st['placed_on']}, attempts {st['attempts']}")
+            pool_stats = client.stats()["pool"]
+            log(f"  worker 0 killed -9 inside a serve_batch: retried on {st['placed_on']} "
+                f"(attempts {st['attempts']}), == oracle == one-shot CLI, {kill_wall:.3f} s "
+                f"from submit; pool stats {json.dumps(pool_stats)}")
+            _serve_cli(env, port, ["shutdown"])
+            proc.wait(timeout=120)
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            _stop_workers([(p, (n.split(":")[0], int(n.split(":")[1]))) for p, n, _ in workers
+                           if p.poll() is None], SERVE_SECRET)
+        got_launches, lines = launches()  # and read just after the processes end
+        want_launches = {
+            "tokenize": 0,
+            # 2 one-block jobs; the big job's shards (each folds its
+            # bucket) and their merge on the daemon; the tf fold of every
+            # map split of tfidf and index (one sort per block); the job
+            # of the killed worker, folded once on the survivor.
+            "bitonic_sort": 2 + sum(bucket_blocks(-(-(b - a) // BL)) for a, b in ranges) + 1
+            + 2 * sum(-(-(b - a) // BL) for a, b in plan_ranges) + 1,
+            # 2 one-block jobs; the map splits of the join plan and of its
+            # repeat (each folds its bucket).
+            "fused_fold": 2 + 2 * sum(bucket_blocks(-(-(b - a) // BL)) for a, b in plan_ranges),
+        }
+        mem = {}
+        for ln in lines:
+            who = f"{'worker' if ln['module'].endswith('worker') else 'daemon'}:{ln['pid']}"
+            mem[who] = max(mem.get(who) or 0, ln.get("max_memory_reserved") or 0) or None
+        env.by_path["pool"] = got_launches
+        report.update({"workers_start_s": [w[2] for w in workers], "daemon_start_s": daemon_s,
+                       "one_block_jobs": answers, "sharded_job": shard, "plans": plan_report,
+                       "killed_worker_job_s": kill_wall, "pool_stats": pool_stats,
+                       "launches": got_launches, "expected_launches": want_launches,
+                       "max_memory_reserved_by_process": mem})
+        log(f"  launches summed over the daemon and the workers: {got_launches}, expected "
+            f"{want_launches}; peak reserved device memory by process {json.dumps(mem)}")
+        if on_card and got_launches != want_launches:
+            raise AssertionError(f"pool launches {got_launches} != {want_launches}")
+
+    with phase("failover: a primary with --journal-dir --ship-to, a standby with --standby-of "
+               "--lease; a job at the inline cap --no-wait, the primary killed -9 while it "
+               "runs, the lease promotes the standby, result --wait under the original id; a "
+               "ship of the old epoch refused with stale_epoch"):
+        open(log_path, "w").close()
+        big_file = write("failover_big.txt", big)
+        lease = env.pool_lease_s
+        held = json.dumps({"rules": [{"site": "serve.dispatch", "action": "delay",
+                                      "delay_s": 30.0, "times": 1}]})
+        standby = primary = None
+        try:
+            standby, s_port, standby_s = _start_daemon(
+                env, "failover_standby", ["--journal-dir", os.path.join(work, "j_standby"),
+                                          "--standby-of", "127.0.0.1:9", "--lease", str(lease)],
+                counted_log=log_path)
+            primary, p_port, primary_s = _start_daemon(
+                env, "failover_primary", ["--journal-dir", os.path.join(work, "j_primary"),
+                                          "--ship-to", f"127.0.0.1:{s_port}", "--fault-plan",
+                                          held], counted_log=log_path)
+            sclient = ServeClient(("127.0.0.1", s_port), secret, timeout=60.0)
+            pclient = ServeClient(("127.0.0.1", p_port), secret, timeout=60.0)
+            job_id = _serve_cli(env, p_port, ["submit", big_file, "--no-wait", "--sort-mode",
+                                              "bitonic", *env.serve_submit_extra]
+                                ).stdout.decode().strip()
+            deadline = time.monotonic() + 60
+            while True:
+                rep = sclient.stats()["replication"]
+                state = pclient.status(job_id)["state"]
+                if rep["standby"]["applied_records"] >= 1 and \
+                        rep["standby"]["missing_spills"] == 0 and state == "running":
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"failover: never replicated and running: {rep}, "
+                                         f"{state}")
+                time.sleep(0.01)
+            if rep["role"] != "standby":
+                raise AssertionError(f"the standby flapped to {rep['role']} before the kill")
+            primary.kill()  # SIGKILL
+            primary.wait(timeout=30)
+            t_kill = time.perf_counter()
+            deadline = time.monotonic() + lease + 60
+            while sclient.stats()["replication"]["role"] != "primary":
+                if time.monotonic() > deadline:
+                    raise AssertionError("the standby never promoted")
+                time.sleep(0.01)
+            promote_s = time.perf_counter() - t_kill
+            out = _serve_cli(env, s_port, ["result", job_id, "--wait", "--timeout", "600"])
+            answer_s = time.perf_counter() - t_kill
+            if out.stdout != big_want:
+                raise AssertionError("failover: the promoted standby's answer differs from the "
+                                     "one-shot CLI")
+            rep = sclient.stats()["replication"]
+            fenced = sclient._rpc_one(("127.0.0.1", s_port), {"cmd": "ship", "_epoch": 1,
+                                                             "from": "127.0.0.1:9"})
+            if fenced.get("code") != "stale_epoch" or rep["epoch"] < 2:
+                raise AssertionError(f"failover: old-epoch ship answered {fenced}, epoch "
+                                     f"{rep['epoch']}")
+            _serve_cli(env, s_port, ["shutdown"])
+            standby.wait(timeout=120)
+        finally:
+            for p in (primary, standby):
+                if p is not None and p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        got_f, _ = launches()
+        want_f = {"tokenize": 0, "bitonic_sort": bucket_blocks(big_blocks), "fused_fold": 0}
+        env.by_path["failover"] = got_f
+        report["failover"] = {"standby_start_s": standby_s, "primary_start_s": primary_s,
+                              "lease_s": lease, "kill_to_promoted_s": promote_s,
+                              "kill_to_answer_s": answer_s, "epoch": rep["epoch"],
+                              "old_epoch_ship": fenced.get("code"), "launches": got_f,
+                              "expected_launches": want_f}
+        log(f"  standby up {standby_s:.3f} s, primary {primary_s:.3f} s; primary killed -9 "
+            f"with the job running; promoted by the {lease} s lease {promote_s:.3f} s after the "
+            f"kill (epoch {rep['epoch']}); result --wait under id {job_id} == one-shot CLI "
+            f"{answer_s:.3f} s after the kill; old-epoch ship -> {fenced.get('code')}; "
+            f"launches {got_f}, expected {want_f} (card: {env.smi})")
+        if on_card and got_f != want_f:
+            raise AssertionError(f"failover launches {got_f} != {want_f}")
     return report
 
 
@@ -2204,6 +2736,11 @@ def main() -> int:
     env.serve_cfg, env.serve_big_bytes = {}, ServeConfig().max_corpus_bytes
     env.serve_daemon_extra = env.serve_submit_extra = []
     serve_report = serve_phase(env)
+    env.pool_lease_s = 20.0  # above twice a daemon's start on the card, so no flap at start
+    # A 16 MiB job at the inline cap is 52 blocks: under the default floor
+    # of 64, so the pool's daemon shards from 16 blocks.
+    env.pool_shard_min_blocks = 16
+    pool_report = pool_phase(env)
     plan_phase(env)
     app_mbs = apps_phase(env)
     pagerank_report = pagerank_phase(env)
@@ -2526,7 +3063,8 @@ def main() -> int:
                                           "est_sort_traffic_gb", "achieved_sort_gb_s",
                                           "sort_passes")}
                     for k, r in roof.items()},
-       "attribution": attribution, "distributor": dist_report, "serve": serve_report}
+       "attribution": attribution, "distributor": dist_report, "serve": serve_report,
+       "pool": pool_report}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,15 +78,20 @@ FETCH_CHUNK_MAX = 32 * 1024 * 1024
 
 # The closed command set, the JAX package's: serve_batch and serve_stats
 # are the serve tier's scale-out dispatch surface and plan_stage the
-# distributed-plan stage surface.  A worker started without --serve
-# answers the three with a structured error (the port's worker has no
-# serve surface yet: ROADMAP.md queue 1 item 8, the serve slice 10).
+# distributed-plan stage surface (serve/pool.py -> worker.py, one map
+# split fold, shuffle-partition reduce, join bin or PageRank epoch shard
+# per plan_stage RPC, epoch-fenced like serve_batch).  A worker started
+# without --serve answers the three with a structured error, which the
+# daemon reads as a failed placement its local engine absorbs.
 COMMANDS = ("ping", "map", "fetch", "serve_batch", "serve_stats",
             "plan_stage", "shutdown")
 
-# The serve tier's replication commands (a primary daemon shipping its
-# journal to a hot standby over this same frame protocol), kept so the
-# two packages share one vocabulary.
+# High-availability control plane (serve/replicate.py): the primary serve
+# daemon ships its fsync'd WAL records to a hot standby over this same
+# frame protocol.  ship = a sequence-numbered batch of journal records
+# (a heartbeat when empty); ship_catchup = a full live-journal snapshot
+# for a standby that connected late or fell behind; ship_spill = one
+# content-addressed corpus spill, pulled on demand by sha reference.
 SHIP_COMMANDS = ("ship", "ship_catchup", "ship_spill")
 
 # Fencing epoch: every shipped record and every pool-worker RPC carries

@@ -1,6 +1,6 @@
 """locust_tpu_torch.serve — the persistent multi-tenant job service.
 
-The port of ``locust_tpu/serve``, single node: a resident engine daemon
+The port of ``locust_tpu/serve``: a resident engine daemon
 serving concurrent jobs over the distributor's authenticated frame
 protocol, with admission control + per-tenant weighted fairness
 (scheduler), a warm-executable cache + shape-bucketed batching
@@ -17,8 +17,9 @@ CUDA by default, through kernel B (``sort_mode="bitonic"``) or kernel C
 The wire, the journal, the warm file and the stats are the JAX
 package's: a client of either package drives a daemon of either, and a
 journal or warm directory written by one replays in the other.  The
-worker pool and high availability (``WorkerPool``, ``PoolDispatchError``)
-are the serve slice 10 (ROADMAP.md queue 1 item 8).
+worker pool (``WorkerPool``: placement by cache affinity, sharding,
+distributed plans) and high availability (WAL shipping to a hot standby,
+promotion behind a fencing epoch) mix with the JAX package's too.
 
 torch-free at import (the daemon loads the engine when it is
 constructed), so clients and supervisors import this without torch.
@@ -44,4 +45,5 @@ from locust_tpu_torch.serve.jobs import (  # noqa: F401
     JobSpec,
 )
 from locust_tpu_torch.serve.journal import JobJournal  # noqa: F401
+from locust_tpu_torch.serve.pool import PoolDispatchError, WorkerPool  # noqa: F401
 from locust_tpu_torch.serve.scheduler import AdmitReject, FairScheduler  # noqa: F401

@@ -4,7 +4,11 @@ commands, flags and output).
     python -m locust_tpu_torch.serve [--host H] [--port P] [--secret-env VAR]
         [--max-queue N] [--max-batch N] [--tenant-quota N] [--warm-dir DIR]
         [--journal-dir DIR] [--backend cuda|cpu]
+        [--workers H:P,H:P] [--shard-min-blocks N]
+        [--ship-to H:P | --standby-of H:P [--lease S]]
         [--fault-plan PLAN] [--trace-out FILE]        # run the daemon
+        # --workers: scale-out dispatch across serve-capable distributor
+        # workers (each started with --serve); docs/SERVING.md
 
     python -m locust_tpu_torch.serve submit FILE [--tenant T] [--weight W]
         [--block-lines N] [--sort-mode M] [--no-wait] ...   # one job
@@ -15,14 +19,19 @@ commands, flags and output).
         [--spec-fp F]                                  # drop cached results
     python -m locust_tpu_torch.serve stats                   # daemon stats
     python -m locust_tpu_torch.serve shutdown                # stop it
+    python -m locust_tpu_torch.serve promote [--port P]      # standby -> primary
 
 The daemon runs its engines on the card (``--backend cuda``, the
 default; it builds the kernels at start and exits 2 without a card) or,
-with ``--backend cpu``, on the plain versions of the kernels.  The
-scale-out and high-availability flags (``--workers``,
-``--shard-min-blocks``, ``--ship-to``, ``--standby-of``, ``--lease``) and
-the ``promote`` command are the serve slice 10 (ROADMAP.md queue 1 item
-8): they exit 2 with a message.
+with ``--backend cpu``, on the plain versions of the kernels.
+``--workers`` places batches on a pool of ``python -m
+locust_tpu_torch.distributor.worker --serve`` processes (or JAX ones),
+sharding jobs of ``--shard-min-blocks`` blocks or more and distributing
+covered plans; ``--ship-to`` ships the journal to a hot standby started
+with ``--standby-of``, which takes over on ``promote`` or after
+``--lease`` seconds without its primary (docs/SERVING.md "High
+availability").  Client commands take ``--daemon H:P,H:P``, an HA roster
+that follows ``not_primary`` redirects.
 
 A structured daemon rejection (``ServeError``) prints as
 ``error: [code] message`` and exits 1 — the code is the machine-readable
@@ -42,12 +51,7 @@ import sys
 from locust_tpu_torch.utils import faultplan
 
 _CLIENT_CMDS = ("submit", "result", "status", "cancel", "invalidate",
-                "stats", "shutdown")
-
-# Daemon flags of the serve slice 10, refused until it lands.
-_SLICE_10_FLAGS = ("workers", "shard_min_blocks", "ship_to", "standby_of",
-                   "lease")
-_SLICE_10 = "ROADMAP.md queue 1 item 8, the serve slice 10"
+                "stats", "shutdown", "promote")
 
 
 def _secret(args) -> bytes:
@@ -81,26 +85,35 @@ def _daemon_main(argv) -> int:
     p.add_argument("--trace-out", default=None, metavar="FILE",
                    help="export the daemon's serve.* telemetry as "
                         "Chrome-trace JSON at exit (docs/OBSERVABILITY.md)")
+    p.add_argument("--workers", default=None, metavar="H:P,H:P",
+                   help="scale-out dispatch: comma-separated host:port "
+                        "roster of serve-capable distributor workers "
+                        "(python -m locust_tpu_torch.distributor.worker "
+                        "--serve); batches place across them with "
+                        "cache affinity, the local engine stays the "
+                        "floor (docs/SERVING.md)")
+    p.add_argument("--shard-min-blocks", type=int, default=64,
+                   help="blocks at which a large job fans out across "
+                        "the worker pool (with --workers)")
+    p.add_argument("--ship-to", default=None, metavar="H:P",
+                   help="high availability (docs/SERVING.md): ship every "
+                        "fsync'd WAL record to the hot-standby daemon at "
+                        "this address (requires --journal-dir; shipping "
+                        "is async — a dead standby never slows admits)")
+    p.add_argument("--standby-of", default=None, metavar="H:P",
+                   help="start as a HOT STANDBY of the primary at this "
+                        "address (requires --journal-dir): apply shipped "
+                        "WAL records, answer stats/ping, refuse the job "
+                        "plane with not_primary until promoted "
+                        "(`... promote` or --lease expiry)")
+    p.add_argument("--lease", type=float, default=None, metavar="S",
+                   help="standby auto-promotion: take over after S "
+                        "seconds without primary contact (default: "
+                        "manual `promote` only)")
     p.add_argument("--backend", choices=("cuda", "cpu"), default="cuda",
                    help="the engines' device: cuda (default; the kernels "
                         "are built at start) or cpu (their plain versions)")
-    for flag, what in (
-        ("--workers", "scale-out dispatch over a worker pool"),
-        ("--shard-min-blocks", "large-job sharding over the pool"),
-        ("--ship-to", "WAL shipping to a hot standby"),
-        ("--standby-of", "hot-standby start"),
-        ("--lease", "standby auto-promotion"),
-    ):
-        p.add_argument(flag, default=None,
-                       help=f"{what}: not ported yet ({_SLICE_10}); refused")
     args = p.parse_args(argv)
-    refused = [f"--{name.replace('_', '-')}" for name in _SLICE_10_FLAGS
-               if getattr(args, name) is not None]
-    if refused:
-        print(f"error: {', '.join(refused)}: the serve worker pool, "
-              "sharding and high availability are not ported yet "
-              f"({_SLICE_10})", file=sys.stderr)
-        return 2
     faultplan.install(args.fault_plan)
     from locust_tpu_torch import obs
 
@@ -109,11 +122,14 @@ def _daemon_main(argv) -> int:
     try:
         daemon = _build_daemon(args)
     except (ValueError, RuntimeError, OSError) as e:
-        # No card, a failed kernel build or a port in use is an
+        # A config refusal (e.g. --ship-to without --journal-dir), no
+        # card, a failed kernel build or a port in use is an
         # operator one-liner, not a traceback.
         print(f"error: {e}", file=sys.stderr)
         return 2
-    print(f"[serve] listening on {daemon.addr[0]}:{daemon.addr[1]}",
+    print(f"[serve] listening on {daemon.addr[0]}:{daemon.addr[1]}"
+          + (f" (role {daemon.role})" if (args.standby_of or args.ship_to)
+             else ""),
           file=sys.stderr, flush=True)
     try:
         daemon.serve_forever()
@@ -143,6 +159,14 @@ def _build_daemon(args):
             tenant_quota=args.tenant_quota,
             warm_dir=args.warm_dir,
             journal_dir=args.journal_dir,
+            workers=tuple(
+                w.strip() for w in (args.workers or "").split(",")
+                if w.strip()
+            ),
+            shard_min_blocks=args.shard_min_blocks,
+            ship_to=args.ship_to,
+            standby_of=args.standby_of,
+            lease_s=args.lease,
         ),
         device=args.backend,
     )
@@ -325,16 +349,21 @@ def _stats_main(argv, cmd: str) -> int:
         client.shutdown()
         print("[serve] daemon shutting down", file=sys.stderr)
         return 0
+    if cmd == "promote":
+        # Fenced takeover (docs/SERVING.md "High availability"): point
+        # this at the STANDBY — it bumps the epoch, replays the
+        # replicated WAL and starts dispatching; the old primary is
+        # fenced out by the higher epoch wherever it reappears.
+        res = client.promote()
+        print(f"[serve] promoted: role={res['role']} epoch={res['epoch']}",
+              file=sys.stderr)
+        return 0
     print(json.dumps(client.stats(), indent=2, default=str))
     return 0
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] == "promote":
-        print("error: promote: high availability is not ported yet "
-              f"({_SLICE_10})", file=sys.stderr)
-        return 2
     if argv and argv[0] in _CLIENT_CMDS:
         from locust_tpu_torch.serve.client import ServeError
 

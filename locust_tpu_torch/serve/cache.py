@@ -131,8 +131,9 @@ class ExecutableCache:
         closure fp (``Plan.node_fingerprint``) is node-id independent,
         so an alpha-renamed resubmit of the same pipeline lands on the
         same warm executable — and the shape bucket rides the ledger
-        exactly as for whole jobs (docs/PLAN.md "Distributed
-        execution"; the port's serve workers are the serve slice 10)."""
+        exactly as for whole jobs, so a repeat distributed plan skips
+        the per-worker first dispatch (docs/PLAN.md "Distributed
+        execution")."""
         return (PLAN_WORKLOAD, f"node:{node_fp}", cfg_fp)
 
     def _lookup_key(self, key: tuple, njobs: int, bucket: int, build):

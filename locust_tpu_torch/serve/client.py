@@ -3,7 +3,7 @@
 The port's copy of the JAX package's ``serve/client.py``: the same
 requests on the same wire (distributor/protocol.py), so it drives a
 daemon of either package, and a JAX client drives the port's daemon.
-``promote`` comes with high availability (the serve slice 10).
+``promote`` flips a standby daemon of either package to primary.
 
 Speaks the distributor's authenticated frame protocol over one fresh
 connection per request — stateless and retry-friendly (the daemon's
@@ -276,6 +276,23 @@ class ServeClient:
         if job_id:
             req["job_id"] = job_id
         return int(self._rpc_ok(req).get("invalidated", 0))
+
+    def promote(self) -> dict:
+        """Promote THE FIRST ROSTER ADDRESS to PRIMARY (fenced epoch
+        bump + WAL replay, docs/SERVING.md "High availability").
+        Deliberately neither redirect-following nor failing-over: an
+        epoch bump fences the other pair member, so it must land on
+        exactly the daemon the operator named — point a single-address
+        client at the standby.  A connection error raises; a primary
+        answers a structured refusal."""
+        resp = self._rpc_one(self.roster[0], {"cmd": "promote"})
+        if resp.get("status") != "ok":
+            raise ServeError(
+                str(resp.get("code", "dispatch_failed")),
+                str(resp.get("error", "promote failed")),
+                reply=resp,
+            )
+        return resp
 
     def stats(self) -> dict:
         return self._rpc_ok({"cmd": "stats"})

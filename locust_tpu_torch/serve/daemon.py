@@ -1,6 +1,6 @@
 """Locust Serve on the card: the persistent multi-tenant engine daemon.
 
-The port's single-node copy of the JAX package's ``serve/daemon.py``.
+The port of the JAX package's ``serve/daemon.py``.
 The one-shot CLI pays process start on every run (torch's import and a
 CUDA context are most of a small job's wall, PERF.md section 5); this
 daemon keeps ONE process resident, with warm engines on the daemon's
@@ -11,7 +11,7 @@ device (docs/SERVING.md):
     command set::
 
         submit | status | result | cancel | invalidate | stats
-        | ping | shutdown    (+ promote and the ship commands, refused)
+        | ping | shutdown
 
   * **admission + fairness**: a bounded queue that rejects-with-reason
     when full and a per-tenant weighted fair scheduler
@@ -38,11 +38,18 @@ admit, read caches and answer.  A failed kernel launch fails its jobs
 through the retry ladder with a structured error; no job ever folds on
 the CPU while the daemon's device is CUDA.
 
-Single node only: the worker pool, large-job sharding, distributed plans
-and high availability (``workers``, ``ship_to``, ``standby_of``) refuse
-at construction — they are the serve slice 10 (ROADMAP.md queue 1 item
-8).  Without them the JAX daemon behaves exactly as this one: every
-batch folds on the local engine and the daemon is always the primary.
+Scale-out (docs/SERVING.md): with ``workers`` the daemon places batches
+on a pool of port (or JAX) ``--serve`` workers by cache affinity
+(serve/pool.py), fans a job of ``shard_min_blocks`` blocks or more out as
+line-range shards merged on the daemon's device, and runs covered plan
+shapes (fold spines, join trees, PageRank) as stage waves over the pool
+(plan/distribute.py); the local engine stays the floor.  High
+availability: with ``ship_to`` the primary ships its write-ahead journal
+to a hot standby (serve/replicate.py); with ``standby_of`` the daemon
+starts as that standby and promotes on ``promote`` or when its lease
+expires, replaying under the original job ids behind a fencing epoch.
+The wire, the journal with its stage records, the epoch file and the
+stats are the JAX daemon's, so the packages mix in one deployment.
 
 Error discipline: a client observes either a correct result or a
 STRUCTURED error carrying a ``jobs.ERROR_CODES`` reason — never a silent
@@ -59,20 +66,21 @@ when the daemon is constructed or first dispatches.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
 import logging
 import os
+import shutil
 import socket
+import tempfile
 import threading
 import time
 import uuid
 
 from locust_tpu_torch import obs
-from locust_tpu_torch.config import EngineConfig
 from locust_tpu_torch.distributor import protocol
-from locust_tpu_torch.plan import PlanError
 from locust_tpu_torch.serve import batch as batching
 from locust_tpu_torch.serve.cache import (
     ExecutableCache,
@@ -80,6 +88,7 @@ from locust_tpu_torch.serve.cache import (
     SubPlanCache,
     WarmState,
 )
+from locust_tpu_torch.config import EngineConfig
 from locust_tpu_torch.serve.jobs import (
     WORKLOADS,
     Job,
@@ -88,47 +97,51 @@ from locust_tpu_torch.serve.jobs import (
     structured_error,
 )
 from locust_tpu_torch.serve.jobs import pairs_bytes as jobs_pairs_bytes
+from locust_tpu_torch.plan import PlanError
+from locust_tpu_torch.serve import replicate
 from locust_tpu_torch.serve.journal import JobJournal
+from locust_tpu_torch.serve.pool import PoolDispatchError
 from locust_tpu_torch.serve.scheduler import AdmitReject, FairScheduler
 from locust_tpu_torch.utils import faultplan
 
 logger = logging.getLogger("locust_tpu_torch")
 
-# Where the scale-out and high-availability half of the serve tier waits.
-SLICE_10 = "ROADMAP.md queue 1 item 8, the serve slice 10"
-
-# The JAX daemon's command set, so a client of either package gets the
-# same answers: promote and the ship commands are answered with the
-# structured refusals of a JAX daemon that runs without HA.
 SERVE_COMMANDS = (
     "ping", "submit", "status", "result", "cancel", "invalidate",
     "stats", "shutdown",
+    # High availability (docs/SERVING.md): "promote" flips a standby to
+    # primary (fenced epoch bump + journal replay); the ship commands
+    # are the primary->standby WAL replication stream
+    # (serve/replicate.py; protocol.SHIP_COMMANDS).
     "promote", "ship", "ship_catchup", "ship_spill",
 )
 
-# The fencing epoch file of a journal dir (the JAX serve/replicate.py
-# EPOCH_FILE); read for the stats' replication sub-dict.
-EPOCH_FILE = "epoch"
+# Job-plane commands a STANDBY refuses with the structured not_primary
+# code (naming the primary so roster clients redirect transparently).
+# stats/ping/promote/ship* stay answerable — that is what "hot" means.
+_PRIMARY_ONLY_COMMANDS = (
+    "submit", "status", "result", "cancel", "invalidate",
+)
 
 
-def _load_epoch(journal_dir: str) -> int:
-    """The persisted fencing epoch (>= 1); a fresh or damaged file reads
-    as 1, as in JAX."""
-    try:
-        with open(os.path.join(journal_dir, EPOCH_FILE),
-                  encoding="utf-8") as f:
-            return max(1, int(f.read().strip()))
-    except (OSError, ValueError):
-        return 1
+class _PlanSolo(Exception):
+    """Internal control flow for the plan coordinator: demote this plan
+    job to the solo local engine, with a named reason.  Raised by the
+    distributed path's safety gates (unrecognized shape raced in, too
+    few placeable workers, a fold that would truncate where the solo
+    evaluator's accounting differs) — the handler releases placements,
+    counts ``plan_solo_fallbacks`` and runs the solo floor.  Never
+    silent (docs/PLAN.md "Distributed execution")."""
+
+    def __init__(self, reason: str):
+        self.reason = reason
+        super().__init__(reason)
 
 
 @dataclasses.dataclass
 class ServeConfig:
     """Daemon capacity/policy knobs: the JAX class's fields and defaults
-    (docs/SERVING.md).  ``workers``, ``ship_to`` and ``standby_of``
-    refuse at construction until the serve slice 10 lands; the other
-    pool and HA fields are kept so a configuration spelled for the JAX
-    daemon constructs here unchanged."""
+    (docs/SERVING.md)."""
 
     max_queue: int = 64          # admission bound: pending jobs, global
     max_batch: int = 8           # jobs coalesced into one dispatch
@@ -163,29 +176,46 @@ class ServeConfig:
     # attempts per job are bounded by the SPEC's max_attempts.
     retry_base_s: float = 0.2
     retry_cap_s: float = 5.0
-    # Scale-out dispatch and HA: the serve slice 10.  Only the empty
-    # defaults are accepted here.
+    # Scale-out dispatch (docs/SERVING.md): place batches across a pool
+    # of serve-capable distributor workers ("host:port" roster; empty =
+    # every batch folds on the daemon's local engine, exactly the
+    # pre-pool behavior).  The local engine stays the FLOOR: a saturated
+    # or dead pool degrades to local dispatch, never to a dead daemon.
     workers: tuple = ()
-    pool_inflight: int = 1
-    pool_rpc_timeout: float = 600.0
+    pool_inflight: int = 1           # concurrent batches per worker
+    pool_rpc_timeout: float = 600.0  # bound on one worker dispatch RPC
+    # Content-addressed corpus spill the pool workers read (<sha>.bin):
+    # defaults to the journal's spill dir when journaling, else a
+    # daemon-owned temp dir.  Workers must share this filesystem.
     pool_spill_dir: str | None = None
+    # Large-job sharding: a job of >= shard_min_blocks blocks fans out
+    # over up to shard_max workers (contiguous block-aligned line
+    # ranges) and merges through the engine's combine; fewer than 2
+    # placeable workers = the whole job folds locally.
     shard_min_blocks: int = 64
     shard_max: int = 4
+    # Distributed plan execution (docs/PLAN.md "Distributed execution"):
+    # a map/reduce stage attempt still unfinished this many seconds
+    # after launch gets ONE speculative backup attempt on another held
+    # worker — first finisher wins, the loser's partitions are ignored
+    # (attempt-suffixed filenames keep them from colliding).
     plan_speculate_s: float = 30.0
+    # High availability (docs/SERVING.md "High availability"): with
+    # ship_to set ("host:port" of a hot standby) the primary ships
+    # every fsync'd WAL record there asynchronously (serve/replicate.py)
+    # — a dead standby degrades to a logged warning + lag gauge, never a
+    # slow admit.  With standby_of set ("host:port" of the primary, the
+    # address not_primary rejections name until ship traffic refines
+    # it) the daemon starts as a WARM STANDBY: it applies shipped
+    # records into its own journal, answers stats/ping only, and
+    # refuses the job plane until promoted — by the explicit `promote`
+    # command, or automatically when lease_s passes with no primary
+    # contact (None = manual promotion only).  Both require journal_dir
+    # (the WAL is what ships).
     ship_to: str | None = None
     standby_of: str | None = None
     lease_s: float | None = None
     ship_heartbeat_s: float = 2.0
-
-    def __post_init__(self):
-        asked = [name for name in ("workers", "ship_to", "standby_of")
-                 if getattr(self, name)]
-        if asked:
-            raise NotImplementedError(
-                f"ServeConfig({', '.join(asked)}=...): the serve worker "
-                "pool, sharding, distributed plans and high availability "
-                f"are not ported yet ({SLICE_10}); run the daemon single-node"
-            )
 
 
 class ServeDaemon:
@@ -208,6 +238,14 @@ class ServeDaemon:
         if not secret:
             raise ValueError("serve daemon requires a shared secret "
                              "(same Q8 stance as the distributor)")
+        cfg = cfg or ServeConfig()
+        if (cfg.ship_to or cfg.standby_of) and not cfg.journal_dir:
+            # Both sides of an HA pair need the WAL: it is the thing
+            # that ships.  Refused before the device and the kernels.
+            raise ValueError(
+                "--ship-to / --standby-of require --journal-dir: the "
+                "write-ahead journal is what replication ships"
+            )
         from locust_tpu_torch.engine import resolve_device
 
         self.device = resolve_device(device)
@@ -221,7 +259,7 @@ class ServeDaemon:
             for name in _build.KERNEL_SOURCES:
                 _build.load(name)
         self.secret = secret
-        self.cfg = cfg or ServeConfig()
+        self.cfg = cfg
         self.scheduler = FairScheduler(
             max_queue=self.cfg.max_queue,
             max_batch=self.cfg.max_batch,
@@ -256,16 +294,101 @@ class ServeDaemon:
             if self.cfg.journal_dir
             else None
         )
+        # High availability (docs/SERVING.md): roles, fencing epoch, and
+        # the replication endpoints (both sides need the WAL, checked
+        # above).
+        self.role = "standby" if self.cfg.standby_of else "primary"
         self.epoch = (
-            _load_epoch(self.cfg.journal_dir)
+            replicate.load_epoch(self.cfg.journal_dir)
             if self.journal is not None else 1
         )
+        self._seen_epoch = self.epoch   # highest epoch observed anywhere
+        self._primary_hint = self.cfg.standby_of  # who not_primary names
+        self._fenced_by: int | None = None  # epoch that demoted us, if any
+        self._promote_lock = threading.Lock()  # serializes role flips
+        self.receiver = (
+            replicate.ShipReceiver(self.journal)
+            if self.journal is not None else None
+        )
+        if self.receiver is not None:
+            self.receiver.touch()  # the lease clock starts now
+        self.shipper = None
+        self.pool = None
+        self._pool_spill_owned: str | None = None
+        if self.cfg.workers:
+            from locust_tpu_torch.serve.pool import WorkerPool
+
+            spill_dir = self.cfg.pool_spill_dir
+            if spill_dir is None and self.journal is not None:
+                # Share the journal's content-addressed spill: admitted
+                # corpora are already on disk there, so pool dispatches
+                # re-serialize nothing.
+                spill_dir = self.journal.corpus_dir
+            if spill_dir is None:
+                spill_dir = tempfile.mkdtemp(prefix="locust-serve-pool-")
+                self._pool_spill_owned = spill_dir
+            self.pool = WorkerPool(
+                self.cfg.workers,
+                secret,
+                spill_dir=spill_dir,
+                max_inflight=self.cfg.pool_inflight,
+                rpc_timeout=self.cfg.pool_rpc_timeout,
+                # Fencing: every serve_batch RPC carries this daemon's
+                # promotion epoch; a worker that has seen a newer
+                # primary answers structured stale_epoch and the zombie
+                # demotes instead of split-braining (docs/SERVING.md).
+                epoch_fn=lambda: self.epoch,
+                # A pool-owned dir has no journal compaction behind it:
+                # cap it so a long-running distinct-corpus stream cannot
+                # fill the disk (evicted spills re-spill on retry).
+                spill_cap_bytes=(
+                    2 * self.cfg.max_queue_bytes
+                    if self._pool_spill_owned else None
+                ),
+            )
+            # Warm-cache RPC: re-learn which worker already holds which
+            # compiled shapes (a daemon restart against a warm fleet
+            # must not cold-spray its first batches).  Best-effort.
+            for w in self.pool.workers:
+                self.pool.seed_affinity(w)
+            # Shard coordinators run OFF the dispatcher thread: a
+            # coordinator blocks (bounded) on its shard futures, and
+            # parking the single dispatcher there would stall every
+            # other tenant's dispatch and the deadline sweep for up to
+            # pool_rpc_timeout.  Dedicated and small on purpose —
+            # coordinators submit shard RPCs to the POOL executor, so
+            # sharing that executor could deadlock with every thread a
+            # waiting coordinator.
+            self._shard_executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="serve-shard"
+            )
         self._lock = threading.Lock()
         # The node has ONE card: every device touch — engine builds,
         # staging, folds and the demux's device->host reads — runs on
         # the dispatcher thread under this lock.
         self._engine_lock = threading.Lock()
         self._jobs: dict[str, Job] = {}       # insertion order = age
+        # Distributed-plan coordinator state (docs/PLAN.md "Distributed
+        # execution"), both under self._lock: stage/recompute counters
+        # surfaced in the stats "pool" sub-dict, and WAL-replayed stage
+        # progress (job_id -> completed map-split records) so a restart
+        # reuses surviving shuffle partitions instead of remapping.
+        self._plan_counters = {
+            "stages": 0, "recomputes": 0,
+            "speculated": 0, "partitions_reused": 0,
+            # Satellite of the plan-surface-v2 round: a pool-eligible
+            # plan job demoted to the solo engine is NEVER silent (the
+            # fused_demoted stance) — counted here, logged once per
+            # reason (_count_plan_solo).
+            "plan_solo_fallbacks": 0,
+            # Distributed map splits that landed on a worker's warm
+            # fold-node executable (cache.fold_node_key): a repeat
+            # distributed plan should push this up while the workers'
+            # ``compiles`` stay flat.
+            "map_warm_hits": 0,
+        }
+        self._plan_solo_logged: set[str] = set()
+        self._plan_progress: dict[str, list] = {}
         self._corpus_bytes: dict[str, bytes] = {}  # job_id -> in-flight bytes
         self._corpus_total = 0  # sum of _corpus_bytes values (admission cap)
         self._result_bytes = 0  # sum of retained job.result_bytes (history cap)
@@ -284,12 +407,35 @@ class ServeDaemon:
         # Replay BEFORE the dispatcher exists: re-enqueued jobs must be
         # fully staged (record + corpus) before anything can pop them —
         # the same record-before-admit ordering the submit path keeps.
-        if self.journal is not None:
+        # A STANDBY deliberately skips replay: its journal mirrors the
+        # primary's live set via shipping, and promotion is the moment
+        # replay (and dispatch) begins.
+        if self.journal is not None and self.role == "primary":
             self._replay_journal()
+        if self.cfg.ship_to and self.role == "primary":
+            self._start_shipper()
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name="serve-dispatch", daemon=True
         )
         self._dispatcher.start()
+
+    def _start_shipper(self) -> None:
+        """Wire the async WAL shipper to the standby (primary role only;
+        replay has already run, so the first catch-up snapshot carries
+        exactly the live set)."""
+        from locust_tpu_torch.serve.pool import parse_worker_addr
+
+        self.shipper = replicate.ReplicationShipper(
+            parse_worker_addr(self.cfg.ship_to),
+            self.secret,
+            self.journal,
+            epoch_fn=lambda: self.epoch,
+            advertise=f"{self.addr[0]}:{self.addr[1]}",
+            on_fenced=self._demote,
+            heartbeat_s=self.cfg.ship_heartbeat_s,
+        )
+        self.journal.on_append = self.shipper.enqueue
+        self.shipper.start()
 
     # --------------------------------------------------------- accept loop
 
@@ -343,6 +489,17 @@ class ServeDaemon:
             self._closed = True
             gen = self._completed
         self.scheduler.stop()
+        # Local snapshot: a concurrent fenced _demote() nulls the
+        # attribute, and `if self.shipper ...: self.shipper.stop()`
+        # would re-read it after the check.
+        shipper = self.shipper
+        if shipper is not None:
+            # Before the dispatcher join: the shipper only reads the
+            # journal and its own queue, and stopping it first means the
+            # final terminal records below are the last thing it could
+            # have shipped anyway (the standby's replay recomputes
+            # whatever a lost flush-only record would have said).
+            shipper.stop()
         # The join must outlive one cold dispatch (an engine's first
         # fold at a new shape): a shorter timeout lets close() flush +
         # close the warm writer while a dispatch is mid-flight, so that
@@ -353,6 +510,21 @@ class ServeDaemon:
                 "serve dispatcher still busy after 90s at close; jobs "
                 "finishing after this point will not reach warm state"
             )
+        if self.pool is not None:
+            # Pool teardown ordering (docs/SERVING.md): stop placements
+            # and join inflight worker RPCs (bounded) BEFORE the
+            # stranded-job drain and the warm flush — a remote batch
+            # landing during the drain still publishes its results, and
+            # a batch that dies with its worker requeues onto the
+            # stopped scheduler, fails structured shutting_down below.
+            self.pool.close(timeout=30.0)
+            # After the pool's sockets close, any coordinator still
+            # waiting sees its shard futures fail fast and routes its
+            # job through the stopped scheduler to a structured
+            # shutting_down — nothing left is worth blocking on.
+            self._shard_executor.shutdown(wait=False, cancel_futures=True)
+            if self._pool_spill_owned:
+                shutil.rmtree(self._pool_spill_owned, ignore_errors=True)
         # The stopped scheduler answers next_batch with None forever, so
         # jobs still queued here can never dispatch: fail them with the
         # structured shutdown code and free their buffered corpora — an
@@ -380,7 +552,7 @@ class ServeDaemon:
             # Clean shutdown leaves a compact journal: stranded jobs were
             # just failed structured above, so nothing is live.
             try:
-                self.journal.compact()
+                self._compact_journal()
             except Exception:  # noqa: BLE001 - best-effort at teardown
                 logger.exception("serve journal compaction failed at close")
             self.journal.close()
@@ -464,15 +636,13 @@ class ServeDaemon:
             self._shutdown.set()
             return {"status": "ok", "bye": True}
         if cmd == "promote":
-            # The JAX daemon's answer when it is already the primary,
-            # which a daemon without HA always is.
-            return structured_error(
-                "bad_spec",
-                f"promote refused: this daemon is already the primary "
-                f"(epoch {self.epoch})",
-            )
+            return self._cmd_promote()
         if cmd in protocol.SHIP_COMMANDS:
-            return self._cmd_ship()
+            return self._cmd_ship(cmd, req)
+        if cmd in _PRIMARY_ONLY_COMMANDS:
+            not_primary = self._not_primary_reply()
+            if not_primary is not None:
+                return not_primary
         if cmd == "submit":
             return self._cmd_submit(req)
         if cmd == "status":
@@ -484,22 +654,6 @@ class ServeDaemon:
         if cmd == "invalidate":
             return self._cmd_invalidate(req)
         return self._cmd_stats()
-
-    def _cmd_ship(self) -> dict:
-        """Replication frames: a daemon without a journal answers the
-        JAX daemon's refusal; one with a journal refuses to act as a
-        standby until replication is ported."""
-        if self.journal is None:
-            return structured_error(
-                "bad_spec",
-                "this daemon has no journal; start it with --journal-dir "
-                "to receive replication",
-            )
-        return structured_error(
-            "bad_spec",
-            f"this daemon does not receive replication: high "
-            f"availability is not ported yet ({SLICE_10})",
-        )
 
     def _cmd_submit(self, req: dict) -> dict:
         try:
@@ -817,6 +971,7 @@ class ServeDaemon:
             completed = self._completed
             corpus_total = self._corpus_total
             result_bytes = self._result_bytes
+            plan_counters = dict(self._plan_counters)
         return {
             "status": "ok",
             "service": "locust-serve",
@@ -826,7 +981,13 @@ class ServeDaemon:
             "queued_corpus_bytes": corpus_total,
             "history_result_bytes": result_bytes,
             "queue": self.scheduler.stats(),
-            "pool": None,
+            # The pool sub-dict carries the distributed-plan coordinator
+            # counters (stage RPCs run, recomputes, speculative backups,
+            # WAL-replay partition reuse — docs/PLAN.md).
+            "pool": (
+                dict(self.pool.stats(), plan=plan_counters)
+                if self.pool is not None else None
+            ),
             "exec_cache": self.executables.stats(),
             "result_cache": self.results.stats(),
             "subplan_cache": self.subplans.stats(),
@@ -834,49 +995,340 @@ class ServeDaemon:
             "journal": (
                 self.journal.stats() if self.journal is not None else None
             ),
+            # HA operator surface (docs/SERVING.md "High availability"):
+            # role, fencing epoch, shipping lag / standby application
+            # state — readable without touching logs.
             "replication": self._replication_stats(),
         }
 
+    # ---------------------------------------------------- high availability
+
+    def _not_primary_reply(self) -> dict | None:
+        """The structured standby refusal for job-plane commands, naming
+        the primary so roster clients redirect transparently — or None
+        when this daemon IS the primary."""
+        with self._lock:
+            if self.role == "primary":
+                return None
+            primary = self._primary_hint
+        if self.receiver is not None:
+            # Ship traffic carries the primary's advertised address —
+            # fresher than any static seed after a chain of failovers.
+            primary = self.receiver.primary() or primary
+        reply = structured_error(
+            "not_primary",
+            f"this daemon is a standby; submit to the primary"
+            + (f" at {primary}" if primary else ""),
+        )
+        if primary:
+            reply["primary"] = primary
+        return reply
+
+    def _cmd_promote(self) -> dict:
+        """Operator-driven takeover.  Refused on a daemon that is
+        already primary (the double-promotion guard): promoting twice —
+        or promoting the live primary by mistake — must be a loud no,
+        not a silent epoch bump that fences a healthy peer."""
+        with self._lock:
+            already = self.role == "primary"
+            epoch = self.epoch
+        if already:
+            return structured_error(
+                "bad_spec",
+                f"promote refused: this daemon is already the primary "
+                f"(epoch {epoch})",
+            )
+        self._promote(reason="command")
+        with self._lock:
+            return {"status": "ok", "role": self.role, "epoch": self.epoch}
+
+    def _cmd_ship(self, cmd: str, req: dict) -> dict:
+        """Route one replication frame (docs/SERVING.md): fence first,
+        then apply.  A primary receiving a VALID (>= epoch) ship has
+        been superseded — it demotes and applies, the split-brain
+        resolution arm of the fencing protocol."""
+        if self.receiver is None:
+            return structured_error(
+                "bad_spec",
+                "this daemon has no journal; start it with --journal-dir "
+                "to receive replication",
+            )
+        incoming = int(req.get(protocol.EPOCH_KEY) or 0)
+        with self._lock:
+            epoch = self.epoch
+            role = self.role
+            self._seen_epoch = max(self._seen_epoch, incoming)
+        if incoming < epoch:
+            # The zombie-primary fence: an old epoch's ship is rejected
+            # structured, and the reply names US as the address to
+            # follow — the zombie demotes instead of split-braining.
+            return replicate.stale_reply(
+                epoch, f"{self.addr[0]}:{self.addr[1]}"
+                if role == "primary" else self._primary_hint,
+            )
+        if role == "primary":
+            if incoming > epoch:
+                # A genuinely newer primary: we are the zombie.
+                self._demote(incoming, req.get("from"))
+            else:
+                # EQUAL epochs: two daemons both believe they are
+                # primary (a misconfigured ring, or a partition healing
+                # before any promotion).  Deterministic tie-break — the
+                # lexicographically smaller advertised address keeps
+                # primaryship — so exactly ONE side demotes; without it
+                # a mutual first-ship race demotes both and the pair
+                # deadlocks with no primary at all.
+                mine = f"{self.addr[0]}:{self.addr[1]}"
+                sender = str(req.get("from") or "")
+                if sender and sender < mine:
+                    self._demote(incoming, sender)
+                else:
+                    return replicate.stale_reply(epoch, mine)
+        # Apply under the promotion lock: a promote() that lands while
+        # this frame is in flight bumps the epoch first, so re-checking
+        # here keeps a just-promoted daemon from applying a stale ship
+        # concurrently with its own replay.
+        with self._promote_lock:
+            with self._lock:
+                if incoming < self.epoch:
+                    return replicate.stale_reply(
+                        self.epoch, f"{self.addr[0]}:{self.addr[1]}"
+                        if self.role == "primary" else self._primary_hint,
+                    )
+            if cmd == "ship":
+                return self.receiver.handle_ship(req)
+            if cmd == "ship_catchup":
+                return self.receiver.handle_catchup(req)
+            return self.receiver.handle_spill(req)
+
+    def _promote(self, reason: str) -> None:
+        """Fenced takeover: bump + persist the epoch past everything
+        ever observed, become primary, then replay the replicated
+        journal exactly like PR 9's restart path — unfinished jobs
+        re-enqueue under their ORIGINAL ids and recompute
+        byte-identically.  Serialized against demotion and concurrent
+        promotes; ship frames arriving after the flip carry the old
+        epoch and bounce off the fence."""
+        with self._promote_lock:
+            with self._lock:
+                if self.role == "primary":
+                    return
+                self.epoch = max(self.epoch, self._seen_epoch) + 1
+                self._seen_epoch = self.epoch
+                self.role = "primary"
+                self._fenced_by = None
+                epoch = self.epoch
+            replicate.store_epoch(self.cfg.journal_dir, epoch)
+            obs.event("serve.takeover", role="primary", epoch=epoch,
+                      reason=reason)
+            logger.warning(
+                "serve daemon promoted to PRIMARY (epoch %d, %s); "
+                "replaying the replicated journal", epoch, reason,
+            )
+            self._replay_journal()
+            if self.cfg.ship_to and self.shipper is None:
+                # Symmetric pair: a promoted standby configured with
+                # --ship-to starts replicating BACK, so the demoted old
+                # primary becomes the new hot standby (ring failover).
+                self._start_shipper()
+
+    def _demote(self, higher_epoch: int, primary=None) -> None:
+        """A newer primary exists (our ship or worker RPC was fenced, or
+        a valid higher-epoch ship arrived): stop acting as primary.
+        Queued jobs fail structured ``not_primary`` — the new primary
+        replays them from the replicated WAL under their original ids,
+        so the structured answer is a redirect, not a loss."""
+        with self._promote_lock:
+            with self._lock:
+                if self.role == "standby":
+                    self._seen_epoch = max(
+                        self._seen_epoch, int(higher_epoch)
+                    )
+                    if primary:
+                        self._primary_hint = str(primary)
+                    return
+                self.role = "standby"
+                self._seen_epoch = max(self._seen_epoch, int(higher_epoch))
+                self._fenced_by = int(higher_epoch)
+                if primary:
+                    self._primary_hint = str(primary)
+                elif self.cfg.ship_to:
+                    self._primary_hint = self.cfg.ship_to
+                hint = self._primary_hint
+            if self.receiver is not None:
+                self.receiver.touch()  # fresh lease: don't instantly re-promote
+            obs.event("serve.takeover", role="standby",
+                      epoch=int(higher_epoch), reason="fenced")
+            logger.warning(
+                "serve daemon FENCED by epoch %d (primary %s): demoting "
+                "to standby", higher_epoch, hint or "unknown",
+            )
+            shipper = self.shipper
+            if shipper is not None:
+                self.journal.on_append = None
+                self.shipper = None
+                shipper.stop()
+            stranded = self.scheduler.drain()
+            if stranded:
+                with self._lock:
+                    for job in stranded:
+                        self._corpus_pop(job.job_id)
+                self._fail_batch(stranded, structured_error(
+                    "not_primary",
+                    "this daemon was demoted to standby mid-queue; the "
+                    "new primary replays this job from the replicated "
+                    "journal under the same id"
+                    + (f" (primary {hint})" if hint else ""),
+                ))
+
+    def _maybe_lease_promote(self) -> None:
+        """Standby lease expiry -> automatic takeover.  Runs on the
+        dispatcher's idle tick; the explicit `promote` command is the
+        other trigger."""
+        if self.cfg.lease_s is None or self.receiver is None:
+            return
+        with self._lock:
+            if self.role == "primary":
+                return
+        age = self.receiver.contact_age_s()
+        if age is not None and age >= self.cfg.lease_s:
+            logger.warning(
+                "primary lease expired (%.1fs > %.1fs without contact)",
+                age, self.cfg.lease_s,
+            )
+            self._promote(reason="lease")
+
     def _replication_stats(self) -> dict:
-        """The JAX daemon's replication sub-dict for a primary that
-        ships nowhere: with a journal it carries the standby-side
-        counters of a receiver that has applied nothing."""
-        out = {
-            "role": "primary",
-            "epoch": self.epoch,
-            "seen_epoch": self.epoch,
-            "fenced_by": None,
-            "primary_hint": None,
-            "lease_s": self.cfg.lease_s,
-        }
-        if self.journal is not None:
-            out["standby"] = {
-                "applied_seq": 0,
-                "applied_records": 0,
-                "resyncs_answered": 0,
-                "catchups": 0,
-                "missing_spills": 0,
-                "primary": None,
-                "contact_age_s": round(
-                    time.monotonic() - self._started_s, 3
-                ),
+        with self._lock:
+            out = {
+                "role": self.role,
+                "epoch": self.epoch,
+                "seen_epoch": self._seen_epoch,
+                "fenced_by": self._fenced_by,
+                "primary_hint": self._primary_hint,
+                "lease_s": self.cfg.lease_s,
             }
+        shipper = self.shipper  # snapshot: _demote may null it mid-call
+        if shipper is not None:
+            out["ship"] = shipper.stats()
+        if self.receiver is not None:
+            out["standby"] = self.receiver.stats()
         return out
 
     # ----------------------------------------------------------- dispatch
 
     def _batch_key(self, job: Job):
         # bisect_group keeps the halves of a failed batch from
-        # re-coalescing (jobs.Job.bisect_group).  The engine_key half
-        # folds the PLAN fingerprint in for plan jobs, and plan jobs
-        # dispatch solo: a compiled plan runs one corpus end-to-end.
+        # re-coalescing (jobs.Job.bisect_group): None for never-failed
+        # jobs, so the common path batches exactly as before.  The
+        # engine_key half already folds the PLAN fingerprint in for plan
+        # jobs (cache.ExecutableCache.engine_key), so two different
+        # pipelines can never coalesce.
         key = (
             self.executables.engine_key(job.spec), job.bucket,
             job.bisect_group,
         )
         if job.spec.plan is not None:
+            # Plan jobs dispatch solo: a compiled plan runs one corpus
+            # end-to-end (no vmapped job axis), so nothing may coalesce
+            # with it — same stance as shard-eligible jobs.
             return key + (("solo", job.job_id),)
+        if self.pool is not None and self._shardable(job):
+            # Shard-eligible jobs dispatch solo: the fan-out owns the
+            # whole batch, so nothing may coalesce with it.
+            return key + (("solo", job.job_id),)
+        # Cache affinity deliberately does NOT ride the key: the warm
+        # set is itself keyed by (engine_key, bucket) — components
+        # already in the key — so appending it could never change which
+        # jobs coalesce; placement happens per-BATCH in pool.place(),
+        # where the affinity decision actually lives.
         return key
+
+    def _affinity_key(self, job: Job) -> tuple:
+        return (self.executables.engine_key(job.spec), job.bucket)
+
+    def _plan_affinity_key(self, job: Job, shape) -> tuple:
+        """Pool-affinity key for a DISTRIBUTED plan job: the shape's
+        primary node closure fingerprint in the workers' fold_node_key
+        spelling (cache.ExecutableCache), so placement prefers workers
+        already holding the compiled stage executable — alpha-renamed
+        resubmits included — and a restarted daemon re-learns those
+        homes from seed_affinity's warm_shapes rows."""
+        from locust_tpu_torch.plan import distribute
+        from locust_tpu_torch.serve.jobs import PLAN_WORKLOAD
+
+        if isinstance(shape, distribute.JoinShape):
+            fp = shape.leaves[0].node_fp
+        else:
+            fp = shape.node_fp
+        return ((PLAN_WORKLOAD, f"node:{fp}"), job.bucket)
+
+    def _shardable(self, job: Job) -> bool:
+        # Plan jobs take their OWN distribution path (_plan_distributable
+        # -> _dispatch_plan_distributed): the worker serve surface here
+        # speaks (workload, config) batches, not plan stages.
+        return (
+            self.pool is not None
+            and job.spec.plan is None
+            and self.cfg.shard_max >= 2
+            and job.n_blocks >= self.cfg.shard_min_blocks
+        )
+
+    def _plan_shape(self, job: Job):
+        """(shape, reason) for a plan job: the distributable shape —
+        fold spine, join tree, or pagerank iterate — or None with the
+        reason it stays solo (plan/distribute.py, docs/PLAN.md
+        "Distributed execution")."""
+        if job.spec.plan is None:
+            return None, "not_a_plan"
+        try:
+            from locust_tpu_torch.plan import distribute, from_json
+
+            return distribute.plan_shape(from_json(job.spec.plan))
+        except Exception as e:  # noqa: BLE001 - unrecognized plan = solo
+            logger.debug(
+                "plan job %s not distributable (%s: %s); solo engine",
+                job.job_id, type(e).__name__, e,
+            )
+            return None, f"shape_error:{type(e).__name__}"
+
+    def _count_plan_solo(self, reason: str) -> None:
+        """A pool-eligible plan job fell back to the solo engine: count
+        it (stats pool.plan ``plan_solo_fallbacks`` + the closed obs
+        registry) and log once per distinct reason — the fused_demoted
+        stance: an operator watching a 2-worker pool buy nothing for
+        their pipeline finds out WHY, not never."""
+        with self._lock:
+            self._plan_counters["plan_solo_fallbacks"] += 1
+            first = reason not in self._plan_solo_logged
+            self._plan_solo_logged.add(reason)
+        obs.metric_inc("plan.solo_fallbacks")
+        if first:
+            logger.warning(
+                "plan job demoted to the solo engine (%s); further "
+                "demotions for this reason are counted, not logged "
+                "(stats pool.plan plan_solo_fallbacks)", reason,
+            )
+
+    def _plan_distributable(self, job: Job) -> bool:
+        """Large plan jobs whose DAG matches a covered shape fan their
+        stages across the pool; everything else keeps the solo engine —
+        the floor, and the byte-identity anchor the distributed path is
+        measured against (docs/PLAN.md "Distributed execution").  A
+        pool-eligible job that fails ONLY the shape check is a counted,
+        logged demotion (never silent)."""
+        if (
+            self.pool is None
+            or job.spec.plan is None
+            or self.cfg.shard_max < 2
+            or job.n_blocks < self.cfg.shard_min_blocks
+        ):
+            return False
+        shape, reason = self._plan_shape(job)
+        if shape is None:
+            self._count_plan_solo(reason or "unrecognized_shape")
+            return False
+        return True
 
     def _dispatch_loop(self) -> None:
         while not self._shutdown.is_set():
@@ -905,6 +1357,7 @@ class ServeDaemon:
         ])
 
     def _dispatch_once(self) -> None:
+        self._maybe_lease_promote()
         self._sweep_deadlines()
         # Only an occupied queue is worth a queue-wait span: an idle
         # daemon's poll ticks would bury the timeline in no-op spans.
@@ -913,13 +1366,19 @@ class ServeDaemon:
             if self.scheduler.depth()
             else contextlib.nullcontext()
         )
+        # One batch per free placement slot, plus the local floor:
+        # independent same-tick batches overlap across the pool instead
+        # of serializing on one engine (the scale-out tentpole).  With
+        # no pool this is exactly the old single-batch pop.
+        limit = 1 + (self.pool.free_slots() if self.pool is not None else 0)
         with cm:
             batches = self.scheduler.next_batches(
-                self._batch_key, max_batches=1,
+                self._batch_key, max_batches=limit,
                 timeout=self.cfg.dispatch_poll_s,
             )
         if not batches:
             return
+        local: list[tuple[list[Job], dict]] = []
         for jobs in batches:
             jobs, corpora = self._pop_batch_corpora(jobs)
             if not jobs:
@@ -946,10 +1405,57 @@ class ServeDaemon:
                         f"[faultplan] injected dispatch {rule.action}",
                     )
                     continue
+            if len(jobs) == 1 and self._shardable(jobs[0]):
+                # On the dedicated coordinator executor: the coordinator
+                # blocks (bounded) on its shard futures and must not
+                # park the dispatcher; the shard RPCs themselves overlap
+                # on the pool executor.
+                try:
+                    self._shard_executor.submit(
+                        self._dispatch_sharded, jobs[0], corpora
+                    )
+                except RuntimeError:  # executor shut down under us
+                    self._fail_batch(jobs, structured_error(
+                        "shutting_down",
+                        "daemon shut down before this job was "
+                        "dispatched; resubmit after it returns",
+                    ))
+                continue
+            if len(jobs) == 1 and self._plan_distributable(jobs[0]):
+                # Same coordinator stance as sharding: the plan
+                # coordinator blocks (bounded) on its stage futures and
+                # must not park the dispatcher.
+                try:
+                    self._shard_executor.submit(
+                        self._dispatch_plan_distributed, jobs[0], corpora
+                    )
+                except RuntimeError:  # executor shut down under us
+                    self._fail_batch(jobs, structured_error(
+                        "shutting_down",
+                        "daemon shut down before this job was "
+                        "dispatched; resubmit after it returns",
+                    ))
+                continue
+            worker = (
+                self.pool.place(self._affinity_key(jobs[0]))
+                if self.pool is not None and jobs[0].spec.plan is None
+                else None
+            )
+            if worker is not None:
+                try:
+                    self.pool.submit(
+                        self._dispatch_remote, worker, jobs, corpora
+                    )
+                except RuntimeError:  # pool closed between place/submit
+                    self.pool.release(worker)
+                    local.append((jobs, corpora))
+            else:
+                local.append((jobs, corpora))
+        for jobs, corpora in local:
             self._dispatch_local(jobs, corpora)
         self._maybe_mark_warm()
         if self.journal is not None and self.journal.compact_due():
-            self.journal.compact()
+            self._compact_journal()
 
     def _pop_batch_corpora(
         self, jobs: list[Job]
@@ -985,7 +1491,8 @@ class ServeDaemon:
         return jobs, corpora
 
     def _dispatch_local(self, jobs: list[Job], corpora: dict) -> None:
-        """One batch on the daemon's own engine, on its device."""
+        """One batch on the daemon's own engine — the pre-pool path and
+        the pool's permanent floor."""
         if jobs[0].spec.plan is not None:
             return self._dispatch_plan(jobs[0], corpora)
         spec = jobs[0].spec
@@ -1095,12 +1602,928 @@ class ServeDaemon:
                 [job], corpora, f"plan: {type(e).__name__}: {e}"
             )
 
+    def _dispatch_remote(
+        self, worker, jobs: list[Job], corpora: dict
+    ) -> None:
+        """One batch on one pool worker (runs on the pool executor).
+
+        Any failure — the worker dying mid-batch, a structured worker
+        error, an injected fault — feeds the jobs back through the SAME
+        retry/bisection ladder as a local failure: the pool quarantines
+        the worker (WorkerHealth backoff) and the retry lands on a
+        survivor or the local floor, so a worker death costs latency,
+        never an answer.
+        """
+        try:
+            try:
+                # Worker-scoped chaos fire: a plan matching worker=<name>
+                # models THIS worker dying mid-serve-batch.
+                rule = faultplan.fire(
+                    "serve.dispatch", jobs=len(jobs), worker=worker.name
+                )
+                if rule is not None:
+                    if rule.action == "delay":
+                        time.sleep(rule.delay_s)
+                    else:
+                        raise PoolDispatchError(
+                            f"[faultplan] injected dispatch {rule.action} "
+                            f"on worker {worker.name}"
+                        )
+                bucket = jobs[0].bucket
+                for j in jobs:
+                    j.placed_on = worker.name
+                req_jobs = [
+                    {"job_id": j.job_id, "sha": j.corpus_digest,
+                     "n_lines": j.n_lines}
+                    for j in jobs
+                ]
+                with obs.span(
+                    "serve.dispatch",
+                    jobs=len(jobs), bucket=bucket, worker=worker.name,
+                ):
+                    reply = self.pool.dispatch(
+                        worker, jobs[0].spec.workload,
+                        jobs[0].config_overrides or {}, bucket,
+                        req_jobs, corpora,
+                    )
+                self.pool.mark_warm(worker, self._affinity_key(jobs[0]))
+                hit = bool(reply.get("warm"))
+                results = reply["results"]
+                with obs.span("serve.demux", jobs=len(jobs)):
+                    done = time.monotonic()
+                    for job, res in zip(jobs, results):
+                        pairs = [
+                            (base64.b64decode(k), int(v))
+                            for k, v in res["pairs"]
+                        ]
+                        self._finish_job(
+                            job, pairs, int(res["distinct"]),
+                            bool(res["truncated"]),
+                            int(res["overflow_tokens"]),
+                            "warm" if hit else "cold", done,
+                        )
+            except Exception as e:  # noqa: BLE001 - retry ladder absorbs it
+                logger.warning(
+                    "serve pool dispatch on %s failed: %s: %s",
+                    worker.name, type(e).__name__, e,
+                )
+                if getattr(e, "code", None) == "stale_epoch":
+                    # The worker has served a NEWER primary: we are the
+                    # fenced-out zombie.  Demote with the worker's OWN
+                    # high-water epoch when it sent one — the new
+                    # primary replays these jobs from the replicated
+                    # WAL; the retry ladder below still answers them
+                    # structured here.
+                    worker_epoch = getattr(e, "epoch", None)
+                    with self._lock:
+                        fence = max(
+                            self._seen_epoch, self.epoch + 1,
+                            int(worker_epoch or 0),
+                        )
+                    self._demote(fence)
+                self._retry_or_fail(
+                    jobs, corpora,
+                    f"pool worker {worker.name}: {type(e).__name__}: {e}",
+                )
+        finally:
+            self.pool.release(worker)
+        self._maybe_mark_warm()
+
+    def _dispatch_sharded(self, job: Job, corpora: dict) -> None:
+        """Fan one large job across the pool and merge through the
+        engine's combine (docs/SERVING.md "Scale-out dispatch").
+
+        The corpus moves ONCE through the content-addressed spill; each
+        worker folds a contiguous block-aligned line range and the
+        partial tables merge with the same sort+segment-reduce the
+        hierarchical mesh trusts — byte-identical to the local fold in
+        the non-truncated regime.  Fewer than 2 placeable workers (or
+        any shard failing) degrades to the local floor / retry ladder.
+        """
+        from locust_tpu_torch.serve import pool as pool_mod
+
+        cfg = job.spec.cfg
+        corpus = corpora.get(job.corpus_digest, b"")
+        ranges = pool_mod.shard_ranges(
+            job.n_lines, cfg.block_lines, self.cfg.shard_max
+        )
+        placements = []
+        submitted: list = []
+        used: set[int] = set()
+        try:
+            if len(ranges) >= 2:
+                shard_blocks = -(-(ranges[0][1] - ranges[0][0])
+                                 // cfg.block_lines)
+                akey = (
+                    self.executables.engine_key(job.spec),
+                    batching.bucket_blocks(shard_blocks),
+                )
+                for _ in ranges:
+                    w = self.pool.place(akey, exclude=used)
+                    if w is None:
+                        break
+                    used.add(w.idx)
+                    placements.append(w)
+            if len(placements) < 2:
+                for w in placements:
+                    self.pool.release(w)
+                placements = []
+                self._dispatch_local([job], corpora)
+                return
+            if len(placements) < len(ranges):
+                ranges = pool_mod.shard_ranges(
+                    job.n_lines, cfg.block_lines, len(placements)
+                )
+                for w in placements[len(ranges):]:
+                    self.pool.release(w)
+                placements = placements[: len(ranges)]
+            job.shards = len(ranges)
+            job.placed_on = "shard:" + ",".join(
+                w.name for w in placements
+            )
+            self.pool.spill(job.corpus_digest, corpus)
+            futs = []
+            for (a, b), w in zip(ranges, placements):
+                fut = self.pool.submit(self._run_shard_rpc, w, job, a, b)
+                # The slot release rides the FUTURE, not the
+                # coordinator: on a wait timeout the RPC is still
+                # holding the worker's dispatch lane, and an early
+                # release would let place() queue a second batch behind
+                # the stuck connection.
+                fut.add_done_callback(
+                    lambda _f, _w=w: self.pool.release(_w)
+                )
+                submitted.append(w)
+                futs.append(fut)
+            done_f, not_done = concurrent.futures.wait(
+                futs, timeout=self.cfg.pool_rpc_timeout + 30.0
+            )
+            if not_done:
+                raise PoolDispatchError(
+                    f"{len(not_done)} shard dispatch(es) still inflight "
+                    f"after {self.cfg.pool_rpc_timeout + 30.0:.0f}s"
+                )
+            shard_results = [f.result(timeout=1.0) for f in futs]
+            combine = WORKLOADS[job.spec.workload][1]
+            # The merge is device work on the coordinator thread: it
+            # serializes with every other local device touch.
+            with self._engine_lock:
+                pairs, distinct, truncated, overflow = (
+                    batching.merge_shard_results(
+                        shard_results, cfg, combine, device=self.device
+                    )
+                )
+            self._finish_job(
+                job, pairs, distinct, truncated, overflow, "shard",
+                time.monotonic(),
+            )
+        except Exception as e:  # noqa: BLE001 - retry ladder absorbs it
+            logger.warning(
+                "sharded dispatch of %s failed: %s: %s",
+                job.job_id, type(e).__name__, e,
+            )
+            self._retry_or_fail(
+                [job], corpora,
+                f"sharded dispatch: {type(e).__name__}: {e}",
+            )
+        finally:
+            # Only reservations that never became a shard RPC release
+            # here — submitted ones release via their future's callback
+            # (which runs even when the coordinator timed out on them).
+            for w in placements:
+                if w not in submitted:
+                    self.pool.release(w)
+
+    def _run_shard_rpc(self, worker, job: Job, a: int, b: int) -> dict:
+        """One shard of a fanned-out job on one worker (pool executor).
+        Returns the decoded shard table; raises on any failure — the
+        coordinator fails the whole job into the retry ladder."""
+        from locust_tpu_torch.serve import pool as pool_mod
+
+        cfg = job.spec.cfg
+        shard_id = pool_mod.stable_shard_id(job.job_id, a, b)
+        sbucket = batching.bucket_blocks(-(-(b - a) // cfg.block_lines))
+        rule = faultplan.fire(
+            "serve.dispatch", jobs=1, worker=worker.name, job=shard_id
+        )
+        if rule is not None:
+            if rule.action == "delay":
+                time.sleep(rule.delay_s)
+            else:
+                raise PoolDispatchError(
+                    f"[faultplan] injected shard {rule.action} on "
+                    f"worker {worker.name}"
+                )
+        with obs.span(
+            "serve.dispatch", jobs=1, bucket=sbucket, worker=worker.name,
+        ):
+            reply = self.pool.dispatch(
+                worker, job.spec.workload, job.config_overrides or {},
+                sbucket,
+                [{"job_id": shard_id, "sha": job.corpus_digest,
+                  "n_lines": b - a, "line_start": a, "line_end": b}],
+                {},  # corpus already spilled by the coordinator
+            )
+        self.pool.mark_warm(
+            worker, (self.executables.engine_key(job.spec), sbucket)
+        )
+        res = reply["results"][0]
+        return {
+            "pairs": [
+                (base64.b64decode(k), int(v)) for k, v in res["pairs"]
+            ],
+            "distinct": int(res["distinct"]),
+            "truncated": bool(res["truncated"]),
+            "overflow_tokens": int(res["overflow_tokens"]),
+        }
+
+    def _run_plan_stage_rpc(self, worker, req: dict, phase: str) -> dict:
+        """One plan stage RPC on one worker (pool executor).  Raises
+        ``PoolDispatchError`` on ANY failure — transport death, a
+        structured worker answer (carrying code/epoch/lost_split), an
+        injected fault — the coordinator's wave runner owns recovery."""
+        # Worker-scoped chaos fire (the serve.dispatch shard mold):
+        # models THIS stage RPC dying in flight, coordinator side.
+        rule = faultplan.fire(
+            "plan.stage", phase=phase, worker=worker.name,
+            split=req.get("split"), part=req.get("part"),
+        )
+        if rule is not None:
+            if rule.action == "delay":
+                time.sleep(rule.delay_s)
+            else:
+                raise PoolDispatchError(
+                    f"[faultplan] injected plan stage {rule.action} on "
+                    f"worker {worker.name}"
+                )
+        with obs.span(
+            "plan.stage", phase=phase, worker=worker.name,
+            split=req.get("split"), part=req.get("part"),
+        ):
+            return self.pool.stage_rpc(worker, req)
+
+    def _dispatch_plan_distributed(self, job: Job, corpora: dict) -> None:
+        """Fan one covered-shape plan across the pool as stage programs
+        (docs/PLAN.md "Distributed execution").
+
+        Fold spines (StageShape) — map wave: each contiguous
+        block-aligned source split folds on a worker's warm fold-node
+        executables (cache.fold_node_key: a repeat plan skips the
+        per-worker recompile) and publishes its shuffle partitions
+        atomically into the content-addressed spill.  Reduce wave: each
+        partition's inputs move worker-to-worker over the binary data
+        plane and combine on the reducing worker.  Finalize folds the
+        reduced partitions into the solo renderer's EXACT bytes on the
+        daemon — byte-identity to the solo engine is the contract.
+
+        Join trees (JoinShape) run the SAME map wave once (every leaf
+        is the one corpus wordcount fold) and then a join wave: each
+        co-partitioned bin merges its inputs and evaluates the WHOLE
+        tree locally, however deep — chained per-worker stage programs,
+        no master round-trip between joins.  Two explicit identity
+        gates demote to solo (counted, logged): any truncated/overflow
+        map split, or total distinct past the solo fold's table
+        capacity — outside both, the solo leaves are provably exact and
+        the host merge reproduces them bit-for-bit.
+
+        Pagerank (IterateShape) runs as epoch-synchronized sweeps: each
+        worker owns a contiguous rank shard, computes one bit-exact
+        ``pagerank_step`` per epoch over its dst-restricted edge subset
+        and publishes its slice; the next epoch's stages reconstruct
+        the full vector from ALL shards' partitions (the one shuffle
+        per iteration).  Completed epochs journal as WAL stage records,
+        so a SIGKILL mid-iteration resumes from the last fully-intact
+        epoch's partitions; a lost shard partition recomputes exactly
+        that (epoch, shard) stage.
+
+        Robustness is STAGE-granular: a failed/dead worker's stage
+        recomputes on a survivor from its durable inputs (never a
+        full-plan restart; a reduce that lost a partition names the
+        ``lost_split`` and exactly that map split recomputes),
+        stragglers past ``plan_speculate_s`` get one speculative backup
+        (first finisher wins — attempt-keyed filenames cannot collide),
+        completed map splits journal as stage-progress records so a
+        daemon restart reuses surviving partitions, and every stage RPC
+        carries the fencing epoch so a zombie coordinator's publishes
+        die structured ``stale_epoch``.  Fewer than 2 placeable workers
+        (or any unrecognized shape upstream) = the solo floor.
+        """
+        from locust_tpu_torch.plan import distribute
+        from locust_tpu_torch.plan.compile import (
+            SERVE_MAX_PAGERANK_NODES, edges_from_bytes,
+        )
+        from locust_tpu_torch.serve import pool as pool_mod
+
+        shape, shape_reason = self._plan_shape(job)
+        cfg = job.spec.cfg
+        corpus = corpora.get(job.corpus_digest, b"")
+        plan_fp = job.spec.plan_fingerprint()
+        placements: list = []
+        used: set[int] = set()
+        part_files: set[str] = set()
+        try:
+            if shape is None:
+                raise _PlanSolo(shape_reason or "unrecognized_shape")
+            is_iter = isinstance(shape, distribute.IterateShape)
+            is_join = isinstance(shape, distribute.JoinShape)
+            ranges: list = []
+            num_nodes = 0
+            if is_iter:
+                if shape.num_iters < 1:
+                    # Zero sweeps = ranks0; no epoch partitions would
+                    # exist to finalize from — the solo scan owns it.
+                    raise _PlanSolo("iterate_no_epochs")
+                # The edge list names the dense node space (PlanError
+                # here = the same bad_spec the solo evaluator answers).
+                src, dst = edges_from_bytes(corpus)
+                num_nodes = int(max(int(src.max()), int(dst.max()))) + 1
+                if num_nodes > SERVE_MAX_PAGERANK_NODES:
+                    # The solo path raises the canonical bad_spec text.
+                    raise _PlanSolo("pagerank_node_cap")
+                n_tasks = min(self.cfg.shard_max, num_nodes)
+            else:
+                ranges = pool_mod.shard_ranges(
+                    job.n_lines, cfg.block_lines, self.cfg.shard_max
+                )
+                n_tasks = len(ranges)
+            akey = self._plan_affinity_key(job, shape)
+            if n_tasks >= 2:
+                for _ in range(n_tasks):
+                    w = self.pool.place(akey, exclude=used)
+                    if w is None:
+                        break
+                    used.add(w.idx)
+                    placements.append(w)
+            if len(placements) < 2:
+                raise _PlanSolo("insufficient_workers")
+            if not is_iter and len(placements) < len(ranges):
+                # Same reconciliation as sharding: re-derive the splits
+                # for the workers we actually hold — never drop lines.
+                ranges = pool_mod.shard_ranges(
+                    job.n_lines, cfg.block_lines, len(placements)
+                )
+                for w in placements[len(ranges):]:
+                    self.pool.release(w)
+                placements = placements[: len(ranges)]
+            n_splits = len(ranges)
+            n_parts = len(placements)
+            job.shards = n_parts if is_iter else n_splits
+            job.placed_on = "plan:" + ",".join(w.name for w in placements)
+            self.pool.spill(job.corpus_digest, corpus)
+            dead: set[int] = set()
+            rr = 0
+
+            def next_worker():
+                nonlocal rr
+                for _ in range(len(placements)):
+                    w = placements[rr % len(placements)]
+                    rr += 1
+                    if w.idx not in dead:
+                        return w
+                return None
+
+            # WAL-replayed stage progress (map split or iterate epoch
+            # records — they self-discriminate by key): popped once, the
+            # shape branch below decides what resumes.
+            with self._lock:
+                progress = self._plan_progress.pop(job.job_id, [])
+
+            def run_wave(phase, task_ids, build_req, repair=None,
+                         on_win=None):
+                """One wave of stage RPCs: per-task retry (capped),
+                straggler speculation (first finisher wins), rotation
+                over the surviving held placements."""
+                pending: dict = {}
+                won: dict[int, dict] = {}
+                attempts = {t: 0 for t in task_ids}
+                started: dict[int, float] = {}
+                speculated: set[int] = set()
+                deadline = (
+                    time.monotonic() + self.cfg.pool_rpc_timeout + 30.0
+                )
+
+                def launch(task):
+                    w = next_worker()
+                    if w is None:
+                        raise PoolDispatchError(
+                            "no surviving plan-stage workers"
+                        )
+                    fut = self.pool.submit(
+                        self._run_plan_stage_rpc, w,
+                        build_req(task, attempts[task]), phase,
+                    )
+                    attempts[task] += 1
+                    started[task] = time.monotonic()
+                    pending[fut] = (task, w)
+
+                for t in task_ids:
+                    launch(t)
+                while len(won) < len(task_ids):
+                    if time.monotonic() > deadline:
+                        raise PoolDispatchError(
+                            f"plan {phase} wave still inflight after "
+                            f"{self.cfg.pool_rpc_timeout + 30.0:.0f}s"
+                        )
+                    done_f, _ = concurrent.futures.wait(
+                        list(pending), timeout=0.25,
+                        return_when=concurrent.futures.FIRST_COMPLETED,
+                    )
+                    for fut in done_f:
+                        task, w = pending.pop(fut)
+                        try:
+                            reply = fut.result(timeout=1.0)
+                        except Exception as e:  # noqa: BLE001 - per-task retry
+                            if getattr(e, "code", None) == "stale_epoch":
+                                raise  # the outer fence handler owns it
+                            if task in won:
+                                continue  # a speculative loser died
+                            if (getattr(e, "lost_split", None) is None
+                                    and getattr(e, "lost_epoch", None)
+                                    is None):
+                                # Transport-level death.  A structured
+                                # loss report is the ANSWERING worker
+                                # doing its job (a dead peer's partition
+                                # is the casualty) — marking it dead too
+                                # would strand a 2-worker pool with one
+                                # real death on the solo floor.
+                                dead.add(w.idx)
+                            if attempts[task] >= 3 \
+                                    or next_worker() is None:
+                                raise
+                            with self._lock:
+                                self._plan_counters["recomputes"] += 1
+                            obs.metric_inc("plan.recomputes")
+                            if repair is not None:
+                                repair(task, e)
+                            launch(task)
+                            continue
+                        if reply.get("parts"):
+                            part_files.update(
+                                str(p["path"]) for p in reply["parts"]
+                            )
+                        ref = reply.get("ref")
+                        if isinstance(ref, dict) and ref.get("path"):
+                            # Iterate replies publish ONE shard slice —
+                            # tracked even for speculative losers so no
+                            # epoch partition outlives the job.
+                            part_files.add(str(ref["path"]))
+                        if task in won:
+                            continue  # first finisher already won
+                        won[task] = reply
+                        with self._lock:
+                            self._plan_counters["stages"] += 1
+                        if on_win is not None:
+                            on_win(task, reply, w)
+                    now = time.monotonic()
+                    for t in task_ids:
+                        if (t in won or t in speculated
+                                or now - started[t]
+                                <= self.cfg.plan_speculate_s
+                                or next_worker() is None):
+                            continue
+                        speculated.add(t)
+                        with self._lock:
+                            self._plan_counters["speculated"] += 1
+                        obs.metric_inc("plan.speculated")
+                        launch(t)
+                return won
+
+            if is_iter:
+                # ---- pagerank: epoch-synchronized rank-shard sweeps --
+                n_shards = n_parts
+                epoch_refs: dict[int, dict[int, dict]] = {}
+
+                def journal_epoch(epoch: int, refs: dict) -> None:
+                    if self.journal is not None:
+                        self.journal.append_stage(job.job_id, {
+                            "epoch": epoch,
+                            "n_shards": n_shards,
+                            "parts": [refs[s] for s in range(n_shards)],
+                        })
+
+                # WAL-replayed epoch progress: resume from the HIGHEST
+                # fully-intact journaled epoch (every shard slice present
+                # with its recorded sha) — a daemon restart re-runs only
+                # the sweeps past it, byte-identically (each epoch is a
+                # pure function of the previous epoch's partitions).
+                best = 0
+                best_refs: dict[int, dict] = {}
+                for st in progress:
+                    try:
+                        e_no = int(st.get("epoch", -1))
+                        parts = list(st.get("parts") or [])
+                        if (e_no <= best or e_no > shape.num_iters
+                                or int(st.get("n_shards", -1)) != n_shards
+                                or len(parts) != n_shards):
+                            continue
+                        for ref in parts:
+                            with open(str(ref["path"]), "rb") as f:
+                                data = f.read()
+                            if (hashlib.sha256(data).hexdigest()
+                                    != ref["sha256"]):
+                                raise ValueError("partition sha drifted")
+                        best = e_no
+                        best_refs = {
+                            int(r["part"]): dict(r) for r in parts
+                        }
+                    except Exception as e:  # noqa: BLE001 - damaged = recompute
+                        logger.warning(
+                            "plan resume: damaged epoch record skipped "
+                            "(%s: %s); that epoch recomputes",
+                            type(e).__name__, e,
+                        )
+                        continue
+                if best:
+                    epoch_refs[best] = best_refs
+                    part_files.update(
+                        str(r["path"]) for r in best_refs.values()
+                    )
+                    with self._lock:
+                        self._plan_counters["partitions_reused"] += (
+                            n_shards
+                        )
+
+                def inputs_for(epoch: int):
+                    """The previous epoch's full partition set (None =
+                    the uniform-ranks first sweep).  Read at BUILD time
+                    so a mid-wave repair's fresh refs reach relaunched
+                    and speculative attempts."""
+                    if epoch < 1:
+                        return None
+                    refs = epoch_refs[epoch]
+                    return [dict(refs[s]) for s in range(n_shards)]
+
+                def build_iter_req(epoch: int):
+                    def build(shard: int, attempt: int) -> dict:
+                        return {
+                            "phase": "iterate",
+                            "sha": job.corpus_digest,
+                            "spill_dir": self.pool.spill_dir,
+                            "plan_fp": plan_fp,
+                            "epoch": epoch, "shard": shard,
+                            "n_shards": n_shards,
+                            "num_nodes": num_nodes,
+                            "damping": shape.damping,
+                            "attempt": attempt,
+                            "inputs": inputs_for(epoch - 1),
+                            # split/part feed the chaos + obs stage ctx.
+                            "split": epoch, "part": shard,
+                        }
+                    return build
+
+                def repair_iterate(epoch: int):
+                    def repair(shard: int, exc) -> None:
+                        """A sweep lost one of the PREVIOUS epoch's
+                        shard slices: recompute exactly that
+                        (epoch-1, shard) stage on a survivor and
+                        re-journal — the relaunched sweep reads the
+                        fresh ref through inputs_for's closure.  The
+                        recompute is deterministic, so the re-journaled
+                        epoch is bit-identical to the original."""
+                        le = getattr(exc, "lost_epoch", None)
+                        ls = getattr(exc, "lost_split", None)
+                        if le is None or ls is None:
+                            return
+                        le, ls = int(le), int(ls)
+                        if le != epoch - 1 or le < 1:
+                            return
+                        w = next_worker()
+                        if w is None:
+                            raise PoolDispatchError(
+                                "no surviving plan-stage workers"
+                            )
+                        old = epoch_refs[le][ls]
+                        att = int(old.get("attempt", 0)) + 1
+                        reply = self._run_plan_stage_rpc(
+                            w, build_iter_req(le)(ls, att), "iterate"
+                        )
+                        ref = dict(
+                            reply["ref"],
+                            worker=reply.get("worker", ""),
+                            attempt=att,
+                        )
+                        epoch_refs[le][ls] = ref
+                        part_files.add(str(ref["path"]))
+                        journal_epoch(le, epoch_refs[le])
+                    return repair
+
+                for epoch in range(best + 1, shape.num_iters + 1):
+                    won = run_wave(
+                        "iterate", list(range(n_shards)),
+                        build_iter_req(epoch),
+                        repair=repair_iterate(epoch),
+                    )
+                    refs = {}
+                    for shard, reply in won.items():
+                        refs[int(reply.get("shard", shard))] = dict(
+                            reply["ref"],
+                            worker=reply.get("worker", ""),
+                            attempt=int(reply.get("attempt", 0)),
+                        )
+                    epoch_refs[epoch] = refs
+                    journal_epoch(epoch, refs)
+                    # The rank-shuffle chaos window: published slices
+                    # sit durable between epochs, same exposure as the
+                    # fold shuffle's map->reduce gap.
+                    for s in range(n_shards):
+                        distribute.chaos_partition(
+                            str(refs[s]["path"]), epoch, s
+                        )
+                # Finalize on the host: the final epoch's shard slices
+                # concatenate (shard order IS node order) into the solo
+                # renderer's exact bytes — pure numpy, no engine lock.
+                final = epoch_refs[shape.num_iters]
+                slices = []
+                for s in range(n_shards):
+                    ref = final[s]
+                    pairs = distribute.read_partition(
+                        str(ref["path"]), str(ref["sha256"]),
+                        distribute.RANK_KEY_WIDTH,
+                    )
+                    slices.append(distribute.decode_rank_values(pairs))
+                output, distinct, trunc, ovf = (
+                    distribute.finalize_ranks(slices)
+                )
+                self._finish_job(
+                    job, [(output, 0)], distinct, trunc, ovf,
+                    "distributed", time.monotonic(),
+                )
+                return
+
+            # ---- fold spines + join trees: one shared map wave ------
+            # Every leaf of a covered join tree is the SAME corpus
+            # wordcount fold, so ONE map wave serves however many
+            # leaves the tree has.
+            fold = "wordcount" if is_join else shape.fold
+            map_node_fp = (
+                shape.leaves[0].node_fp if is_join else shape.node_fp
+            )
+            lines_per_doc = 1 if is_join else shape.lines_per_doc
+
+            def build_map_req(split: int, attempt: int) -> dict:
+                a, b = ranges[split]
+                return {
+                    "phase": "map", "fold": fold,
+                    "config": job.config_overrides or {},
+                    "sha": job.corpus_digest,
+                    "spill_dir": self.pool.spill_dir,
+                    "plan_fp": plan_fp, "split": split,
+                    "attempt": attempt, "n_parts": n_parts,
+                    "line_start": a, "line_end": b,
+                    "lines_per_doc": lines_per_doc,
+                    # Keys the worker's warm fold-node executables: a
+                    # repeat plan skips the per-worker recompile.
+                    "node_fp": map_node_fp,
+                }
+
+            map_done: dict[int, dict] = {}
+
+            def journal_stage(split: int, reply: dict) -> None:
+                if self.journal is not None:
+                    self.journal.append_stage(job.job_id, {
+                        "split": split,
+                        "attempt": int(reply.get("attempt", 0)),
+                        "worker": reply.get("worker", ""),
+                        "n_parts": n_parts,
+                        "truncated": bool(reply.get("truncated")),
+                        "overflow_tokens": int(
+                            reply.get("overflow_tokens", 0)
+                        ),
+                        "parts": reply.get("parts", []),
+                    })
+
+            # Reuse a WAL-replayed completed split when the partition
+            # layout matches and every file survived with its recorded
+            # sha — a restart RESUMES the plan instead of remapping
+            # everything (anything damaged just recomputes).
+            for st in progress:
+                try:
+                    s = int(st.get("split", -1))
+                    parts = list(st.get("parts") or [])
+                    if (not 0 <= s < n_splits or s in map_done
+                            or int(st.get("n_parts", -1)) != n_parts
+                            or len(parts) != n_parts):
+                        continue
+                    for ref in parts:
+                        with open(str(ref["path"]), "rb") as f:
+                            data = f.read()
+                        if (hashlib.sha256(data).hexdigest()
+                                != ref["sha256"]):
+                            raise ValueError("partition sha drifted")
+                except Exception as e:  # noqa: BLE001 - damaged = recompute
+                    logger.warning(
+                        "plan resume: damaged stage record skipped "
+                        "(%s: %s); that split recomputes",
+                        type(e).__name__, e,
+                    )
+                    continue
+                map_done[s] = dict(st)
+                part_files.update(str(p["path"]) for p in parts)
+                with self._lock:
+                    self._plan_counters["partitions_reused"] += n_parts
+
+            def on_map_win(split, reply, w):
+                journal_stage(split, reply)
+                self.pool.mark_warm(w, akey)
+                if reply.get("warm"):
+                    # The worker folded on an already-compiled fold-node
+                    # executable (the warm-repeat economics, test- and
+                    # bench-pinned: compiles stay flat on resubmit).
+                    with self._lock:
+                        self._plan_counters["map_warm_hits"] += 1
+                    obs.metric_inc("plan.map_warm_hits")
+
+            todo = [s for s in range(n_splits) if s not in map_done]
+            if todo:
+                map_done.update(run_wave(
+                    "map", todo, build_map_req, on_win=on_map_win,
+                ))
+            truncated = any(
+                bool(r.get("truncated")) for r in map_done.values()
+            )
+            overflow = sum(
+                int(r.get("overflow_tokens", 0))
+                for r in map_done.values()
+            )
+            # The shuffle-partition chaos window (docs/FAULTS.md): the
+            # published files sit durable between the waves — exactly
+            # where a GC race or disk loss would bite a real deployment.
+            for s in sorted(map_done):
+                for ref in map_done[s].get("parts", []):
+                    distribute.chaos_partition(
+                        str(ref["path"]), s, int(ref["part"])
+                    )
+            key_width = distribute.partition_key_width(cfg, fold)
+
+            def partition_inputs(part: int) -> list:
+                """One bin's per-split input refs, read at BUILD time so
+                a mid-wave repair's fresh refs reach relaunches."""
+                return [
+                    dict(
+                        map_done[s]["parts"][part], split=s,
+                        worker=map_done[s].get("worker", ""),
+                    )
+                    for s in range(n_splits)
+                ]
+
+            def repair_map_input(part: int, exc) -> None:
+                """A reduce/join attempt lost a partition input:
+                recompute exactly that map split (attempt-bumped, on a
+                survivor) and re-journal it — the relaunched stage reads
+                the fresh refs through partition_inputs' closure."""
+                s = getattr(exc, "lost_split", None)
+                if s is None:
+                    return
+                s = int(s)
+                w = next_worker()
+                if w is None:
+                    raise PoolDispatchError(
+                        "no surviving plan-stage workers"
+                    )
+                attempt = int(map_done[s].get("attempt", 0)) + 1
+                reply = self._run_plan_stage_rpc(
+                    w, build_map_req(s, attempt), "map"
+                )
+                part_files.update(
+                    str(p["path"]) for p in reply.get("parts", [])
+                )
+                map_done[s] = reply
+                journal_stage(s, reply)
+
+            if is_join:
+                # ---- join wave: per-bin hash-join, tree-deep ---------
+                # Identity gate 1: the solo leaves must be provably
+                # untruncated (a truncated fold's table is not the exact
+                # wordcount the solo join reads).
+                if truncated or overflow:
+                    raise _PlanSolo("join_fold_truncated")
+                tree_wire = distribute.tree_doc(shape.tree)
+
+                def build_join_req(part: int, attempt: int) -> dict:
+                    return {
+                        "phase": "join", "part": part,
+                        "key_width": key_width,
+                        "attempt": attempt,
+                        "tree": tree_wire,
+                        "inputs": partition_inputs(part),
+                    }
+
+                join_done = run_wave(
+                    "join", list(range(n_parts)), build_join_req,
+                    repair=repair_map_input,
+                )
+                # Identity gate 2: total distinct within the solo
+                # fold's table capacity — past it the solo engine WOULD
+                # have truncated, so the solo path must answer.
+                total_distinct = sum(
+                    int(join_done[p].get("distinct", 0))
+                    for p in range(n_parts)
+                )
+                if total_distinct > cfg.resolved_table_size:
+                    raise _PlanSolo("join_fold_capacity")
+                # Host-side merge on purpose: join values are unbounded
+                # Python ints (mul combines) — no engine lock needed.
+                output, distinct, trunc, ovf = distribute.finalize_join([
+                    [
+                        (base64.b64decode(k), int(v))
+                        for k, v in join_done[p].get("pairs", [])
+                    ]
+                    for p in range(n_parts)
+                ])
+                self._finish_job(
+                    job, [(output, 0)], distinct, trunc, ovf,
+                    "distributed", time.monotonic(),
+                )
+                return
+
+            def build_reduce_req(part: int, attempt: int) -> dict:
+                return {
+                    "phase": "reduce", "part": part,
+                    "key_width": key_width,
+                    "attempt": attempt,
+                    "inputs": partition_inputs(part),
+                }
+
+            reduce_done = run_wave(
+                "reduce", list(range(n_parts)), build_reduce_req,
+                repair=repair_map_input,
+            )
+            partition_pairs = [
+                [
+                    (base64.b64decode(k), int(v))
+                    for k, v in reduce_done[p].get("pairs", [])
+                ]
+                for p in range(n_parts)
+            ]
+            # Finalize is device work (the wordcount re-merge) on the
+            # coordinator thread: it serializes with every other local
+            # device touch.
+            with self._engine_lock:
+                output, distinct, trunc, ovf = distribute.finalize(
+                    shape, cfg, job.n_lines, partition_pairs,
+                    truncated, overflow, device=self.device,
+                )
+            self._finish_job(
+                job, [(output, 0)], distinct, trunc, ovf,
+                "distributed", time.monotonic(),
+            )
+        except _PlanSolo as e:
+            # The solo engine is the correctness floor: demote LOUDLY
+            # (logged once per reason, counted in stats pool.plan —
+            # never silent, the fused_demoted stance).  Placements go
+            # back first so the solo run never starves the pool.
+            for w in placements:
+                self.pool.release(w)
+            placements = []
+            self._count_plan_solo(e.reason)
+            self._dispatch_local([job], corpora)
+        except PlanError as e:
+            # Deterministic rejection — same bad_spec discipline as the
+            # solo plan path (retrying cannot change the answer).
+            self._fail_batch([job], structured_error(
+                "bad_spec",
+                f"plan execution rejected the corpus: {e}",
+            ))
+        except Exception as e:  # noqa: BLE001 - retry ladder absorbs it
+            logger.warning(
+                "distributed plan dispatch of %s failed: %s: %s",
+                job.job_id, type(e).__name__, e,
+            )
+            if getattr(e, "code", None) == "stale_epoch":
+                # A worker has served a NEWER primary: we are the
+                # fenced-out zombie — no stale partition may publish.
+                worker_epoch = getattr(e, "epoch", None)
+                with self._lock:
+                    fence = max(
+                        self._seen_epoch, self.epoch + 1,
+                        int(worker_epoch or 0),
+                    )
+                self._demote(fence)
+            self._retry_or_fail(
+                [job], corpora,
+                f"distributed plan: {type(e).__name__}: {e}",
+            )
+        finally:
+            # Held for the whole run (each worker serves several stage
+            # RPCs); a straggler RPC still in flight past this release
+            # is bounded by the worker's own rpc timeout.
+            for w in placements:
+                self.pool.release(w)
+            # Shuffle partitions are scaffolding once the job settled —
+            # the fsync'd admit record can always re-run the plan — so
+            # drop them best-effort to keep the spill dir from accreting.
+            for p in part_files:
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
     def _finish_job(
         self, job: Job, pairs: list, distinct, truncated, overflow,
         cache_label: str, done: float,
     ) -> None:
-        """Publish one finished job (host pairs only) — the demux core
-        of the WordCount and plan paths."""
+        """Publish one finished job — the demux core shared by the
+        local, remote, and shard paths."""
         size = jobs_pairs_bytes(pairs)
         meta = {
             "distinct": int(distinct),
@@ -1302,6 +2725,23 @@ class ServeDaemon:
                         job.job_id, "failed", error=error
                     )
 
+    def _compact_journal(self) -> None:
+        """Rewrite the journal down to the still-live jobs (and GC their
+        orphaned corpus spills).  Liveness comes from the journal's OWN
+        records under its lock (journal.compact) — a daemon-side job
+        snapshot would race handler-thread admits fsync'd between the
+        snapshot and the rewrite, silently dropping acked work.
+
+        Replication-aware: compaction SHIPS as a snapshot barrier — the
+        standby re-syncs to the compacted live set, so a catch-up that
+        was mid-flight when the GC ran converges instead of stranding on
+        swept spills (every swept spill's job has a terminal record
+        already in the ship stream)."""
+        self.journal.compact()
+        shipper = self.shipper  # snapshot: _demote may null it mid-call
+        if shipper is not None:
+            shipper.barrier()
+
     def _replay_journal(self) -> None:
         """Crash recovery: re-enqueue every journaled job still owed an
         answer, under its ORIGINAL id (docs/SERVING.md durability):
@@ -1464,6 +2904,12 @@ class ServeDaemon:
             with self._lock:
                 self._remember(job)
                 self._corpus_put(job.job_id, corpus)
+                if entry.stages and job.spec.plan is not None:
+                    # Stage-progress records (distributed plans): the
+                    # coordinator re-verifies each recorded partition
+                    # file by sha and reuses the survivors instead of
+                    # remapping the whole plan (docs/PLAN.md).
+                    self._plan_progress[job.job_id] = list(entry.stages)
             self.scheduler.requeue(job, 0.0)
             if entry.terminal is not None:
                 # A done-but-unpersisted job re-enqueues past its own

@@ -1,9 +1,10 @@
 """Write-ahead job journal: accepted work survives a SIGKILL.
 
-The port's copy of the JAX package's ``serve/journal.py``, single-node
-(replication's apply/snapshot hooks wait for the serve slice 10, ROADMAP
-queue 1 item 8).  The on-disk format is the JAX module's, so a journal
-written by either package replays in the other (docs/SERVING.md):
+The port's copy of the JAX package's ``serve/journal.py``, with its
+stage-progress records (distributed plans) and its replication hooks
+(the apply, snapshot and reset a hot standby needs, serve/replicate.py).
+The on-disk format is the JAX module's, so a journal written by either
+package, stage records included, replays in the other (docs/SERVING.md):
 
   * **append-before-ack**: every admitted job appends one fsync'd JSONL
     record — tenant, workload, config overrides, deadline/retry budget,
@@ -93,9 +94,8 @@ def admit_record(job) -> dict:
 
 class JournalEntry:
     """One replayable job: its admit record + last terminal state +
-    any distributed-plan stage-progress records (written by a JAX
-    daemon with a worker pool; parsed for format identity, unused by the
-    single-node port)."""
+    any distributed-plan stage-progress records (docs/PLAN.md
+    "Distributed execution") journaled before the crash."""
 
     __slots__ = ("admit", "terminal", "stages")
 
@@ -120,6 +120,12 @@ class JobJournal:
                  compact_every: int = 512):
         self.dir = journal_dir
         self.fsync = fsync
+        # Replication hook (serve/replicate.py, docs/SERVING.md "High
+        # availability"): called with every record dict AFTER it landed
+        # durably (never for a torn/failed append — an unacked record
+        # must not reach the standby).  Set by the daemon; must be fast
+        # and non-raising (it only enqueues on the async shipper).
+        self.on_append = None
         self.compact_every = max(1, int(compact_every))
         self._corpus_dir = os.path.join(journal_dir, CORPUS_DIR)
         os.makedirs(self._corpus_dir, exist_ok=True)
@@ -150,6 +156,16 @@ class JobJournal:
         self._spills = 0
         self._spill_ms = 0.0
         self._last_compact_t: float | None = None
+
+    @property
+    def corpus_dir(self) -> str:
+        """The content-addressed spill directory.  The serve worker
+        pool shares it (serve/pool.py): admitted corpora are already
+        spilled here once, so a pool dispatch ships a reference, not
+        bytes."""
+        return self._corpus_dir
+
+    # ------------------------------------------------------------- appends
 
     def append_admit(self, job, corpus: bytes) -> None:
         """Spill the corpus, then durably append the admit record.
@@ -183,6 +199,19 @@ class JobJournal:
                "t": time.time()}
         if error is not None:
             rec["error"] = dict(error)
+        self._append(rec, durable=False)
+
+    def append_stage(self, job_id: str, stage: dict) -> None:
+        """Flush-only stage-progress record for a distributed plan
+        (docs/PLAN.md "Distributed execution"): one per completed map
+        split, carrying its published partition references.  Replay
+        hands them back so a restarted coordinator RESUMES from the
+        splits whose partitions survived on disk instead of re-running
+        the whole map wave.  Flush-only like state records: losing one
+        to a crash only costs a recompute — the fsync'd admit record
+        (which carries the whole plan) already guarantees the answer."""
+        rec = {"rec": "stage", "job_id": job_id, "stage": dict(stage),
+               "t": time.time()}
         self._append(rec, durable=False)
 
     def _append(self, rec: dict, durable: bool) -> None:
@@ -229,6 +258,20 @@ class JobJournal:
                 "[faultplan] injected journal crash mid-append "
                 f"({rec['rec']} record torn)"
             )
+        cb = self.on_append
+        if cb is not None:
+            # Outside the journal lock (the shipper has its own): the
+            # record is durable locally by now, and per-job ordering is
+            # safe — a terminal record is only ever generated after its
+            # admit's append (and callback) returned.
+            cb(rec)
+
+    def apply_record(self, rec: dict) -> None:
+        """Standby-side replication apply: append one SHIPPED record into
+        this journal verbatim (serve/replicate.py).  Admit records pay
+        the same fsync the primary paid — the standby's copy is what
+        promotion replays, so it must be exactly as durable."""
+        self._append(dict(rec), durable=rec.get("rec") == "admit")
 
     def compact_due(self) -> bool:
         with self._lock:
@@ -258,6 +301,24 @@ class JobJournal:
                 if self.fsync:
                     os.fsync(f.fileno())
             os.replace(tmp, path)
+
+    def spill_exists(self, sha: str) -> bool:
+        return os.path.exists(self.spill_path(sha))
+
+    def store_spill(self, sha: str, corpus: bytes) -> bool:
+        """Replication-side spill store: verify-then-write (a shipped
+        spill whose bytes don't hash to its sha reference must never
+        land under that name — the content ADDRESS is the integrity
+        contract).  False = rejected."""
+        if hashlib.sha256(corpus).hexdigest() != sha:
+            logger.warning(
+                "shipped corpus spill %s fails its content hash; "
+                "refusing to store it", sha,
+            )
+            return False
+        with self._lock:
+            self._spill(sha, corpus)
+        return True
 
     def read_spill(self, sha: str) -> bytes | None:
         """The spilled corpus, integrity-checked; None when missing or
@@ -328,12 +389,17 @@ class JobJournal:
             )
         return list(entries.values())
 
-    def _parse_live(self) -> dict[str, dict]:
+    def _parse_live(self, locked: bool = True) -> dict[str, dict]:
         """job_id -> admit record for every LIVE job (an admit with no
-        later terminal state), journal order preserved — the stats read:
-        the caller flushed already, and the tolerant parser handles
-        whatever a concurrent append/compaction leaves.  Torn/corrupt
-        lines are dropped exactly as replay would drop them."""
+        later terminal state), journal order preserved.  With
+        ``locked`` the caller holds the journal lock (the catch-up
+        snapshot path, where atomicity is correctness); ``locked=False``
+        is the informational stats read — the caller flushed already,
+        and the tolerant parser handles whatever a concurrent
+        append/compaction leaves.  Torn/corrupt lines are dropped
+        exactly as replay would drop them."""
+        if locked:
+            self._fh.flush()
         admits: dict[str, dict] = {}
         try:
             with open(self.path, encoding="utf-8", errors="replace") as f:
@@ -355,6 +421,41 @@ class JobJournal:
             except (ValueError, KeyError, TypeError):
                 continue
         return admits
+
+    def live_records(self) -> list[dict]:
+        """The catch-up snapshot (serve/replicate.py): every live admit
+        record, read atomically under the journal lock so a concurrent
+        append/compaction can never hand the standby a half state."""
+        with self._lock:
+            return list(self._parse_live().values())
+
+    def reset_to(self, records: list[dict]) -> None:
+        """Standby catch-up apply: atomically replace this journal's
+        contents with exactly ``records`` (the primary's live snapshot)
+        and GC spills nothing references anymore — the standby's
+        equivalent of the primary's compaction, driven by the shipped
+        snapshot barrier instead of a local liveness parse."""
+        tmp = f"{self.path}.tmp.{os.getpid()}"
+        with self._lock:
+            with open(tmp, "w", encoding="utf-8") as f:
+                for rec in records:
+                    f.write(json.dumps(rec, separators=(",", ":")) + "\n")
+                f.flush()
+                if self.fsync:
+                    os.fsync(f.fileno())
+            os.replace(tmp, self.path)
+            self._fh.close()
+            self._fh = open(self.path, "ab")
+            self._dirty_tail = False
+            self._appends_since_compact = 0
+            keep = {str(r.get("corpus_sha", "")) for r in records}
+            try:
+                for name in os.listdir(self._corpus_dir):
+                    sha = name[:-4] if name.endswith(".bin") else None
+                    if sha is not None and sha not in keep:
+                        os.unlink(os.path.join(self._corpus_dir, name))
+            except OSError as e:  # pragma: no cover - GC is best-effort
+                logger.warning("journal spill GC failed: %s", e)
 
     def compact(self) -> None:
         """Atomically rewrite the journal down to the LIVE jobs and GC
@@ -450,13 +551,15 @@ class JobJournal:
         # safe here — compaction publishes via atomic rename (a reader
         # sees the old or the new file, both parseable) and the
         # tolerant parser drops a torn tail exactly as replay would;
-        # the count is informational.
+        # the count is informational, the CATCH-UP snapshot
+        # (live_records) stays under the lock where atomicity is
+        # correctness.
         with self._lock:
             try:
                 self._fh.flush()
             except (OSError, ValueError):  # pragma: no cover - closing race
                 pass
-        live = len(self._parse_live())
+        live = len(self._parse_live(locked=False))
         spill_bytes = self.spill_bytes()
         with self._lock:
             return {
@@ -471,9 +574,10 @@ class JobJournal:
                     self._spill_ms / self._spills, 4
                 ) if self._spills else None,
                 "since_compact": self._appends_since_compact,
-                # What a restart would replay, how much disk the spills
-                # hold, and when the log was last squeezed — readable
-                # from `serve stats` without stalling admits.
+                # HA operator surface (docs/SERVING.md): what a standby
+                # would replay, how much disk the spills hold, and when
+                # the log was last squeezed — readable from `serve
+                # stats` without stalling admits.
                 "live": live,
                 "spill_bytes": spill_bytes,
                 "last_compact_t": self._last_compact_t,

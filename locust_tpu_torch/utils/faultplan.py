@@ -36,11 +36,21 @@ The port fires these sites:
   backend.dispatch a fold on the card guarded by the circuit breaker
                    (backend.guarded_dispatch)       ctx: block, backend
 
+  serve.admit      serve daemon admission path      ctx: tenant, workload
+  serve.dispatch   serve daemon batch dispatch      ctx: jobs[, job, worker]
+  serve.journal    write-ahead journal append       ctx: rec, job
+  serve.place      worker pool placement (serve/pool.py)     ctx: key
+  serve.ship       WAL shipper, each ship frame (serve/replicate.py)
+                                                    ctx: cmd, seq, n
+  plan.stage       one distributed-plan stage RPC, at the worker and at
+                   the daemon's wave runner
+                                          ctx: phase, split, part, port|worker
+  plan.partition   each published shuffle partition between the map and
+                   reduce waves (plan/distribute.py) ctx: path, split, part
+
 The registry keeps every site of the JAX package, so a plan written for
-either package parses in both.  The serve daemon (``locust_tpu_torch.
-serve``) fires ``serve.admit``, ``serve.dispatch`` and ``serve.journal``;
-``serve.place``, ``serve.ship`` and the ``plan.*`` sites fire once the
-serve slice 10 (ROADMAP.md queue 1 item 8) is ported.
+either package parses in both, and every site fires in the port with the
+JAX actions.
 
 Determinism: rule bookkeeping is pure counting (``after`` skips,
 ``times`` caps), and the probabilistic gate and byte mutations derive

@@ -127,7 +127,8 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
     """``chip_smoke.py --counted-child LOG MODULE ARGS``: MODULE's main
     runs, then one JSON line with its argv and this process's launch
     counts lands in LOG; a worker instead points its maps at the same
-    wrapper and appends nothing itself."""
+    wrapper and appends a line for each command it handles that launched
+    a kernel (the launches since its last line)."""
     import json
 
     from locust_tpu_torch.distributor import worker
@@ -152,11 +153,29 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
                       "tokenize": 3, "bitonic_sort": 5, "fused_fold": 7}] * 2
     monkeypatch.setattr(worker, "MAP_COMMAND", worker.MAP_COMMAND)
     monkeypatch.setattr(worker, "main", lambda args: 0)
-    assert smoke._counted_child(log, "locust_tpu_torch.distributor.worker", []) == 0
+    monkeypatch.setattr(worker.Worker, "_handle", worker.Worker._handle)
+    assert smoke._counted_child(log, "locust_tpu_torch.distributor.worker", ["--serve"]) == 0
     assert worker.MAP_COMMAND == (sys.executable, SMOKE, "--counted-child", log,
                                   "locust_tpu_torch.cli")
     with open(log) as f:
         assert len(f.readlines()) == 2
+    # Each command a worker handles appends what it launched, if anything.
+    w = worker.Worker(secret=b"s")
+    try:
+        assert w._handle({"cmd": "ping"}) == {"status": "ok", "pong": True}
+        monkeypatch.setattr(bitonic_sort_rows, "launches", 9)
+        w._handle({"cmd": "ping"})
+        w._handle({"cmd": "ping"})
+    finally:
+        w._sock.close()
+    with open(log) as f:
+        lines = [json.loads(x) for x in f][2:]
+    assert lines == [{"module": "locust_tpu_torch.distributor.worker", "argv": ["--serve"],
+                      "pid": os.getpid(), "cmd": "ping", "tokenize": 3, "bitonic_sort": 5,
+                      "fused_fold": 7, "max_memory_reserved": None},
+                     {"module": "locust_tpu_torch.distributor.worker", "argv": ["--serve"],
+                      "pid": os.getpid(), "cmd": "ping", "tokenize": 0, "bitonic_sort": 4,
+                      "fused_fold": 0, "max_memory_reserved": None}]
 
 
 def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
@@ -230,3 +249,64 @@ def test_chip_smoke_serve_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         "tokenize": 0, "bitonic_sort": 4 + 2 + 32 + 2 + 2 + 8, "fused_fold": 4 + 2 + 32 + 2 + 2}
     assert report["process"]["state_at_kill"] == "running"
     assert report["chaos"] == {"poison_job": 1, "deadline_exceeded": 1}
+
+
+def test_chip_smoke_pool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
+    """``pool_phase`` end to end on the CPU at 128-line blocks: a daemon
+    with ``--workers`` over 2 ``--serve`` worker processes (one-block
+    jobs by affinity, a sharded job, tfidf/index/join/PageRank plans, a
+    worker killed -9 inside a batch), then the failover pair (the primary
+    killed -9, the standby promoted by its lease, the old epoch fenced).
+    Every process counts its kernels' plain versions as launches, so the
+    predicted launch counts hold here as they must on the card."""
+    import contextlib
+    import io
+    import types
+
+    import torch
+
+    from locust_tpu_torch import cli
+    from locust_tpu_torch.ops.kernels import fused_fold, sort, tokenize
+
+    smoke = _smoke_module()
+    monkeypatch.setenv(smoke.COUNT_PLAIN_ENV, "1")
+    wrappers = {"tokenize": tokenize.tokenize_block_kernel,
+                "bitonic_sort": sort.bitonic_sort_rows,
+                "fused_fold": fused_fold.fused_block_preagg}
+    by_path = {}
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return out, {name: w.launches for name, w in wrappers.items()}
+
+    def run_cli(name, argv):
+        out = io.BytesIO()
+        stdout = io.TextIOWrapper(out, write_through=True)
+        with contextlib.redirect_stdout(stdout):
+            rc, by_path[name] = counted(lambda: cli.main(argv))
+        assert rc == 0, argv
+        return out.getvalue()
+
+    bl = 128
+    lines, _ = smoke.replicated_corpus(1 << 20)
+    env = types.SimpleNamespace(
+        torch=torch, dev=torch.device("cpu"), lines=lines, BL=bl, W=128, E=20, K=32,
+        work=str(tmp_path), run_cli=run_cli, counted=counted, by_path=by_path, smi="cpu",
+        cli_extra=["--backend", "cpu", "--block-lines", str(bl)], serve_cfg={"block_lines": bl},
+        serve_big_bytes=60_000, serve_daemon_extra=["--backend", "cpu"],
+        serve_submit_extra=["--block-lines", str(bl)], pool_lease_s=4.0,
+        pool_shard_min_blocks=4)
+    report = smoke.pool_phase(env)
+    # 2 one-block jobs, the big job's 2 shards of 4 and their merge, the
+    # tf folds of tfidf and index (2 splits of 2 blocks each), the killed
+    # worker's job; the fused jobs and the join's 2 splits, twice.
+    assert report["launches"] == report["expected_launches"] == {
+        "tokenize": 0, "bitonic_sort": 2 + 4 + 4 + 1 + 2 * 4 + 1, "fused_fold": 2 + 2 * 4}
+    assert [a["cache"] for a in report["one_block_jobs"]] == ["cold", "warm"] * 2
+    assert report["plans"]["join_repeat"]["worker_compiles"] == [0, 0]
+    assert report["plans"]["pagerank"]["max_abs_delta_vs_solo"] == 0.0
+    fo = report["failover"]
+    assert fo["launches"] == fo["expected_launches"] and fo["old_epoch_ship"] == "stale_epoch"
+    assert fo["epoch"] == 2

@@ -194,7 +194,8 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "            'distributor', 'distributor.protocol', 'distributor.worker',\n"
         "            'distributor.master', 'distributor.microbench', 'serve', 'serve.jobs',\n"
         "            'serve.scheduler', 'serve.cache', 'serve.batch', 'serve.journal',\n"
-        "            'serve.client', 'serve.daemon', 'serve.__main__'):\n"
+        "            'serve.client', 'serve.daemon', 'serve.__main__', 'serve.pool',\n"
+        "            'serve.replicate', 'plan.distribute'):\n"
         "    assert 'locust_tpu_torch.' + sub in names, sub\n"
         "import locust_tpu_torch.distributor.protocol, locust_tpu_torch.distributor.worker\n"
         "import locust_tpu_torch.distributor.master, locust_tpu_torch.distributor.microbench\n"
@@ -216,13 +217,16 @@ def test_port_imports_neither_jax_nor_locust_tpu():
 
 
 def test_serve_control_plane_imports_without_torch():
-    """``locust_tpu_torch.serve``, its client and its caches import
-    without torch (and without jax): a ``submit`` or ``stats`` against a
-    running daemon must not pay torch's import."""
+    """``locust_tpu_torch.serve``, its client, its caches, the worker pool,
+    replication and the distributed-plan shapes import without torch (and
+    without jax): a ``submit`` or ``stats`` against a running daemon must
+    not pay torch's import."""
     code = (
         "import sys\n"
         "import locust_tpu_torch.serve, locust_tpu_torch.serve.client, locust_tpu_torch.serve.cache\n"
         "import locust_tpu_torch.serve.__main__\n"
+        "import locust_tpu_torch.serve.pool, locust_tpu_torch.serve.replicate\n"
+        "import locust_tpu_torch.plan.distribute\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'locust_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -1,7 +1,7 @@
 """PyTorch port, the distributor: master + workers on 127.0.0.1.
 
 The port's counterparts of tests/test_distributor.py, plus what only the
-port has: the refused serve surface, the default map runner (the port's
+port has: the serve surface's device rule, the default map runner (the port's
 stage-1 CLI in a subprocess) and the map that finds no GPU.  Workers run
 with an in-process map runner that calls the port's CLI with ``--backend
 cpu``; every reduced table is the bytes of the JAX one-shot CLI on the
@@ -122,16 +122,38 @@ def test_worker_requires_secret():
 
 
 def test_worker_refuses_serve_until_the_serve_slice(capsys, monkeypatch):
-    """``serve=True`` refuses at construction, naming the serve slice; a
-    worker without it answers the serve commands with the JAX worker's
-    structured error, never by accepting them."""
+    """The serve surface: ``serve=True`` now constructs (on the CPU when
+    asked) and answers ``serve_stats`` as the JAX worker does; ``--serve``
+    with no card, or with a failed kernel build, exits 2 and never serves
+    from the CPU; a worker without ``serve`` answers the serve commands
+    with the JAX worker's structured error, never by accepting them."""
+    import torch
+
+    from locust_tpu.distributor.worker import Worker as JWorker
+    from locust_tpu_torch import _build
     from locust_tpu_torch.distributor import worker as worker_mod
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8, the serve slice 10"):
-        Worker(secret=SECRET, serve=True)
+    served = [Worker(secret=SECRET, serve=True, device="cpu"), JWorker(secret=SECRET, serve=True)]
+    try:
+        stats = [w._handle({"cmd": "serve_stats"}) for w in served]
+        assert stats[0] == stats[1]
+        assert stats[0]["status"] == "ok" and stats[0]["warm_shapes"] == []
+        assert served[0].device.type == "cpu"
+    finally:
+        for w in served:
+            w._sock.close()
     monkeypatch.setenv("LOCUST_SECRET", "s")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert worker_mod.main(["--port", "0", "--serve"]) == 2
-    assert "serve slice 10" in capsys.readouterr().err
+    assert "CUDA is not available" in capsys.readouterr().err
+
+    def failed_build(*a, **k):
+        raise RuntimeError("nvcc failed: bitonic.cu")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_build, "build", failed_build)
+    assert worker_mod.main(["--port", "0", "--serve"]) == 2
+    assert "nvcc failed" in capsys.readouterr().err
     w = Worker(secret=SECRET)
     w.serve_in_thread()
     try:

@@ -4,6 +4,7 @@ daemon and a port daemon (on the CPU) under the same config and the same
 submits.  Results, structured error codes, cache answers and every stats
 counter agree exactly, and the pairs equal the oracle."""
 
+import re
 import socket
 
 import pytest
@@ -332,15 +333,57 @@ def test_cli_submit_no_wait_then_result(tmp_path, capsysbinary):
     assert {k: int(v) for k, v in rows.items()} == oracle(CORPUS_A + CORPUS_B)
 
 
-def test_slice_10_configs_and_flags_refuse(capsys, monkeypatch):
+def test_slice_10_configs_and_flags_refuse(capsys, monkeypatch, tmp_path):
+    """The scale-out and HA configs and flags, refused before this slice,
+    now construct and start as the JAX daemon's do: the same
+    ``ServeConfig`` fields, the same ``--journal-dir`` refusal for
+    ``--ship-to``/``--standby-of`` without one, a daemon per flag set
+    with the same role line, and ``promote`` answering as JAX's does."""
+    import dataclasses
+
+    from locust_tpu.serve import ServeConfig as JConfig
+    from locust_tpu.serve import ServeDaemon as JDaemon
+    from locust_tpu_torch.serve import ServeDaemon as TDaemon
+
     for kw in ({"workers": ("127.0.0.1:1",)}, {"ship_to": "h:1"}, {"standby_of": "h:1"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8, the serve slice 10"):
-            ServeConfig(**kw)
-    monkeypatch.setenv("LOCUST_SECRET", "s")
-    for argv in (["--workers", "h:1"], ["--shard-min-blocks", "4"], ["--ship-to", "h:1"],
-                 ["--standby-of", "h:1"], ["--lease", "3"], ["promote"]):
-        assert tserve_main.main(argv) == 2
-        assert "serve slice 10" in capsys.readouterr().err
+        assert dataclasses.asdict(ServeConfig(**kw)) == dataclasses.asdict(JConfig(**kw))
+    monkeypatch.setenv("LOCUST_SECRET", SECRET.decode())
+    with pair(jax_kw={"journal_dir": str(tmp_path / "jp")},
+              torch_kw={"journal_dir": str(tmp_path / "tp")}) as ((jp, _), (tp, _)):
+        answers = []
+        for main, d in ((jserve_main.main, jp), (tserve_main.main, tp)):
+            rc = main(["promote", "--port", str(d.addr[1])])
+            answers.append((rc, capsys.readouterr().err))
+        assert answers[0] == answers[1]
+        assert answers[1][0] == 1 and "[bad_spec] promote refused" in answers[1][1]
+    built = []
+    for cls in (JDaemon, TDaemon):
+        monkeypatch.setattr(cls, "serve_forever", lambda self: (built.append(self), self.close()))
+    for argv in (["--ship-to", "127.0.0.1:1"], ["--standby-of", "127.0.0.1:1"]):
+        errs = []
+        for main in (jserve_main.main, tserve_main.main):  # refused before the device
+            assert main(["--port", "0", *argv]) == 2
+            errs.append(capsys.readouterr().err)
+        assert errs[0] == errs[1] and "--journal-dir" in errs[1]
+    for i, argv in enumerate((["--workers", "127.0.0.1:1", "--shard-min-blocks", "4"],
+                              ["--ship-to", "127.0.0.1:1"],
+                              ["--standby-of", "127.0.0.1:1", "--lease", "3"])):
+        lines = []
+        for pkg, main, extra in (("jax", jserve_main.main, []),
+                                 ("torch", tserve_main.main, ["--backend", "cpu"])):
+            jdir = ["--journal-dir", str(tmp_path / f"{pkg}{i}")] if i else []
+            assert main(["--port", "0", *argv, *jdir, *extra]) == 0
+            lines.append(re.sub(r":\d+", ":P", next(
+                ln for ln in capsys.readouterr().err.splitlines() if "listening on" in ln)))
+        assert lines[0] == lines[1] == "[serve] listening on 127.0.0.1:P" + (
+            "", " (role primary)", " (role standby)")[i]
+    jd, td = built[0::2], built[1::2]
+    for j, t in zip(jd, td):
+        assert dataclasses.asdict(t.cfg) | {"journal_dir": None} == \
+            dataclasses.asdict(j.cfg) | {"journal_dir": None}
+        assert t.role == j.role
+    assert td[0].pool is not None and td[0].cfg.shard_min_blocks == 4
+    assert td[2].role == "standby" and td[2].cfg.lease_s == 3.0
 
 
 def test_admission_fault_site_answers_like_jax():

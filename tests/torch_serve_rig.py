@@ -68,6 +68,10 @@ def abandon(daemon):
     with daemon._lock:
         daemon._closed = True
     daemon.scheduler.stop()
+    shipper = getattr(daemon, "shipper", None)
+    if shipper is not None:
+        # A dead process ships nothing: the standby must see silence.
+        shipper.stop()
     daemon._sock.close()
 
 
@@ -113,3 +117,133 @@ def stats_view(st: dict) -> dict:
             for k in keys:
                 node.pop(k, None)
     return st
+
+
+# --------------------------------------------------------- worker pools
+
+POOL_RIG = dict(max_queue=16, max_batch=4, dispatch_poll_s=0.02, retry_base_s=0.02)
+
+
+def start_workers(pkg: str, n: int = 2) -> list:
+    """``n`` serve workers of ``pkg`` in threads (the port's on the CPU)."""
+    if pkg == "jax":
+        from locust_tpu.distributor.worker import Worker
+
+        ws = [Worker(secret=SECRET, serve=True) for _ in range(n)]
+    else:
+        from locust_tpu_torch.distributor.worker import Worker
+
+        ws = [Worker(secret=SECRET, serve=True, device="cpu") for _ in range(n)]
+    for w in ws:
+        w.serve_in_thread()
+    return ws
+
+
+def stop_workers(ws) -> None:
+    for w in ws:
+        w._shutdown.set()
+        try:
+            w._sock.close()
+        except OSError:
+            pass
+
+
+def roster(ws) -> tuple:
+    return tuple(f"127.0.0.1:{w.addr[1]}" for w in ws)
+
+
+@contextlib.contextmanager
+def pool(pkg: str, n_workers: int = 2, workers_pkg: str | None = None, **cfg_kw):
+    """A daemon of ``pkg`` over ``n_workers`` in-thread serve workers of
+    ``workers_pkg`` (default: the same package); yields (daemon, workers,
+    client) and closes them at exit."""
+    ws = start_workers(workers_pkg or pkg, n_workers)
+    try:
+        d, c = start(pkg, workers=roster(ws), **{**POOL_RIG, **cfg_kw})
+        try:
+            yield d, ws, c
+        finally:
+            d.close()
+    finally:
+        stop_workers(ws)
+
+
+def settle(client, timeout: float = 30.0) -> None:
+    """Until the daemon's pool holds no placement (a finished job's slot
+    is released just after its answer)."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while any(client.stats()["pool"]["inflight"]):
+        assert time.monotonic() < deadline, "pool placements still held"
+        time.sleep(0.005)
+
+
+def run_wait(client, corpus: bytes, config=None, **kw) -> tuple[dict, dict]:
+    """Submit, wait, settle: (result, status)."""
+    ack = client.submit(corpus=corpus, config=config or CFG_OVR, **kw)
+    res = client.wait(ack["job_id"], timeout=120.0)
+    st = client.status(ack["job_id"])
+    settle(client)
+    return res, st
+
+
+def worker_index(daemon, placed_on: str):
+    """A ``placed_on`` answer as the worker's roster index (or as is)."""
+    names = [w.name for w in daemon.pool.workers]
+    return names.index(placed_on) if placed_on in names else placed_on
+
+
+# --------------------------------------------------- high availability
+
+
+@contextlib.contextmanager
+def ha_pair(tmp_path, primary_pkg: str = "torch", standby_pkg: str = "torch",
+            standby_kw=None, primary_kw=None):
+    """A primary of ``primary_pkg`` shipping its journal to a hot standby
+    of ``standby_pkg``; yields (primary, standby), closed at exit (a
+    daemon the body abandoned is closed already: close() is then a no-op)."""
+    standby, _ = start(standby_pkg, journal_dir=str(tmp_path / f"{standby_pkg}-standby-journal"),
+                       standby_of="127.0.0.1:9", dispatch_poll_s=0.02,
+                       **(standby_kw or {}))
+    try:
+        primary, _ = start(primary_pkg,
+                           journal_dir=str(tmp_path / f"{primary_pkg}-primary-journal"),
+                           ship_to=f"{standby.addr[0]}:{standby.addr[1]}",
+                           dispatch_poll_s=0.02, ship_heartbeat_s=0.2, retry_base_s=0.02,
+                           **(primary_kw or {}))
+        try:
+            yield primary, standby
+        finally:
+            primary.close()
+    finally:
+        standby.close()
+
+
+def wait_replicated(standby, n_records: int, timeout: float = 20.0) -> None:
+    """Until the standby applied ``n_records`` and holds every spill they
+    reference (an applied admit is failover-safe only with its bytes)."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while True:
+        st = standby.receiver.stats()
+        if st["applied_records"] >= n_records and st["missing_spills"] == 0:
+            return
+        assert time.monotonic() < deadline, f"standby never replicated: {st}"
+        time.sleep(0.01)
+
+
+def ship_converged(primary, standby, min_seq: int, timeout: float = 20.0) -> bool:
+    """Every enqueued record acked and the standby's sequence mark at
+    ``min_seq``, every spill held."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        ps, ss = primary.shipper.stats(), standby.receiver.stats()
+        if ps["acked_seq"] >= ps["shipped_seq"] and ss["applied_seq"] >= min_seq \
+                and ss["missing_spills"] == 0:
+            return True
+        time.sleep(0.01)
+    return False
