@@ -1,11 +1,12 @@
 """PageRank: iterative MapReduce over an edge list.
 
 Port of the single-device part of ``locust_tpu/apps/pagerank.py``
-(``DistributedPageRank`` and ``ShardedPageRank`` wait for the port's
-mesh tier).  Per iteration, map each edge (s -> d) to the emit
+(``DistributedPageRank`` and ``ShardedPageRank`` wait for the mesh apps,
+queue item 9c; the flat and hierarchical mesh engines are in
+``locust_tpu_torch.parallel``).  Per iteration, map each edge (s -> d) to the emit
 ``(d, rank[s]/deg[s])`` and reduce by key with sum, then apply damping.
 Node ids ARE the keys, so the shuffle degenerates to a dense segment sum
-(``index_add_``) into a ``[num_nodes]`` vector — no byte keys, no sort.
+into a ``[num_nodes]`` vector — no byte keys, no sort.
 Dangling mass (deg == 0 nodes) redistributes uniformly.
 
 Ranks are float32, and the port adds in the order the JAX package's
@@ -19,15 +20,15 @@ CPU compile adds, so that on the CPU the ranks are the same bits:
     division by a constant;
   * the contributions are added in edge order onto the dangling share
     ``mass / num_nodes`` (XLA folds that addend into the scatter's
-    initial value), with ``index_add_``, which adds in index order on the
-    CPU;
+    initial value): ``ops/kernels/pagerank.gather_add`` walks each node's
+    in-edges, grouped once per graph by a stable sort of ``dst``, in edge
+    order, each product rounded to float32 before its add; on the CPU it
+    is ``index_add_``, which adds in index order, and on CUDA the
+    gather-add kernel (``csrc/pagerank.cu``), so the card's ranks are the
+    CPU's bits too;
   * ``teleport + damping * s`` is one rounding of the exact value, as the
     fused multiply-add XLA's CPU compile emits: the port computes it in
     float64 (the product is exact) and rounds to float32.
-
-On CUDA, ``index_add_`` adds a node's contributions in no fixed order,
-so the last bits may differ from run to run; everything else is the same
-arithmetic.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from locust_tpu_torch.engine import resolve_device
+from locust_tpu_torch.ops.kernels.pagerank import gather_add, in_edges
 
 # XLA's CPU compile reduces in windows of this many elements.
 _XLA_REDUCE_WINDOW = 32
@@ -76,22 +78,34 @@ def pagerank_prep(src, num_nodes: int, device=None):
     return inv_deg, deg == 0
 
 
+def pagerank_grouping(src, dst, num_nodes: int, device=None):
+    """The loop-invariant in-edge grouping ``pagerank_step`` walks:
+    ``(offsets, src_by_dst)``, the CSR offsets of the edges grouped by
+    destination (a stable sort, so each group keeps edge order) and their
+    sources in that order."""
+    dev = resolve_device(device)
+    s, d = _edges(src, dev), _edges(dst, dev)
+    offsets, order = in_edges(d, num_nodes)
+    return offsets, s[order].contiguous()
+
+
 def pagerank_step(src, dst, ranks: torch.Tensor, inv_deg: torch.Tensor,
-                  dangling: torch.Tensor, damping, num_nodes: int) -> torch.Tensor:
+                  dangling: torch.Tensor, damping, num_nodes: int,
+                  grouping=None) -> torch.Tensor:
     """ONE ``pagerank`` iteration, on ``ranks``'s device.  ``damping`` is
     a float32 operand, never a Python float: ``(1 - damping) / n`` is
     computed in float32, as the JAX package's traced operand is (a
-    float64 constant would change the low bits)."""
+    float64 constant would change the low bits).  ``grouping`` is
+    ``pagerank_grouping(src, dst, num_nodes)``, built here when None."""
     dev = ranks.device
-    s, d = _edges(src, dev), _edges(dst, dev)
+    if grouping is None:
+        grouping = pagerank_grouping(src, dst, num_nodes, dev)
     damping = torch.as_tensor(damping, dtype=torch.float32).to(dev)
     inv_n = torch.tensor(np.float32(1) / np.float32(num_nodes), device=dev)
     teleport = (1.0 - damping) * inv_n
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     mass = _xla_sum(torch.where(dangling, ranks, zero))
-    total = (mass * inv_n).expand(num_nodes).clone().index_add_(
-        0, d, ranks[s] * inv_deg[s]
-    )
+    total = gather_add(mass * inv_n, *grouping, ranks.contiguous(), inv_deg)
     return (teleport.double() + damping.double() * total.double()).float()
 
 
@@ -104,8 +118,9 @@ def pagerank(src, dst, num_nodes: int, num_iters: int = 20,
     dev = resolve_device(device)
     s, d = _edges(src, dev), _edges(dst, dev)
     inv_deg, dangling = pagerank_prep(s, num_nodes, dev)
+    grouping = pagerank_grouping(s, d, num_nodes, dev)
     damping = torch.tensor(damping, dtype=torch.float32, device=dev)
     ranks = torch.full((num_nodes,), 1.0 / num_nodes, dtype=torch.float32, device=dev)
     for _ in range(num_iters):
-        ranks = pagerank_step(s, d, ranks, inv_deg, dangling, damping, num_nodes)
+        ranks = pagerank_step(s, d, ranks, inv_deg, dangling, damping, num_nodes, grouping)
     return ranks

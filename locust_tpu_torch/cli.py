@@ -26,6 +26,14 @@ stage defaults to the bitonic kernel (``sort_mode="bitonic"``).
 Stages 0 and 1 run the canonical wordcount plan through the plan
 compiler (plan/compile.py), as the JAX CLI does: under ``--sort-mode
 hasht`` its ``fuse_fold_kernel`` rewrite folds with the fused kernel.
+``--mesh`` runs stages 0 and 1 on the flat mesh engine
+(parallel/shuffle.py, one rank per process on ``torch.distributed``) and
+``--slices S`` on the hierarchical one, printing the JAX CLI's mesh
+report on stderr; ``--coordinator/--num-processes/--process-id`` join a
+world of processes that each run the same command (only process 0
+prints the table).  ``--mesh`` alone is one rank per visible card: a
+world of one in this process on a host with one card, and on a host
+with more the CLI starts the other ranks itself.
 ``--trace-out FILE`` exports the run's spans and metrics as a
 Chrome-trace timeline; ``--profile-dir DIR`` captures a ``torch.profiler``
 trace of the run into DIR.  ``--fault-plan`` (or ``$LOCUST_FAULT_PLAN``)
@@ -112,6 +120,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (default cuda; there is no silent "
                         "fallback to the CPU)")
+    p.add_argument("--mesh", action="store_true",
+                   help="run stage 0/1 on the all-to-all shuffle engine "
+                        "(DistributedMapReduce), one rank per process; prints "
+                        "per-shard stats on stderr")
+    p.add_argument("--slices", type=_positive_int, default=None,
+                   help="with --mesh: the hierarchical engine on a [slices, "
+                        "ranks/slice] world; the per-round shuffle stays inside "
+                        "a slice, slices combine once at the end")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process launch: process 0's address host:port; every "
+                        "process runs the same command with its own --process-id.  "
+                        "Requires --mesh; only process 0 prints the table")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="with --coordinator: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="with --coordinator: this process's index")
     return p
 
 
@@ -125,6 +149,19 @@ def main(argv=None) -> int:
     if argv and argv[0] in cli_apps.SUBCOMMANDS:
         return cli_apps.main(argv[0], argv[1:])
     args = build_parser().parse_args(argv)
+    args.argv = argv  # the mesh's other local ranks run the same command
+    if (args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None) and not (args.mesh or args.slices):
+        print("mapreduce: error: --coordinator/--num-processes/"
+              "--process-id require --mesh", file=sys.stderr)
+        return 2
+    pod = (args.coordinator, args.num_processes, args.process_id)
+    if any(v is None for v in pod) and any(v is not None for v in pod):
+        print("mapreduce: error: --coordinator, --num-processes and --process-id "
+              "go together", file=sys.stderr)
+        return 2
+    if args.slices:
+        args.mesh = True  # --slices implies the mesh engine; never ignore it
     from locust_tpu_torch.engine import resolve_device
 
     try:
@@ -144,6 +181,7 @@ def main(argv=None) -> int:
     except OSError as e:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
+
     finally:
         if plan is not None:
             faultplan.deactivate()
@@ -172,6 +210,8 @@ def _run(args, device) -> int:
     with prof:
         if args.stage == STAGE_REDUCE:
             rc = _reduce_stage(args, cfg, device, inter, timer)
+        elif args.mesh:
+            rc = _mesh_stage(args, cfg, device, inter, timer)
         else:
             rc = _fold_stage(args, cfg, device, inter, timer)
     if args.profile_dir:
@@ -179,18 +219,18 @@ def _run(args, device) -> int:
     return rc
 
 
-def _fold_stage(args, cfg, device, inter, timer) -> int:
-    """Stages 0 and 1: load (or stream) the slice and fold it."""
+def _auto_caps(args, cfg, timer):
+    """--auto-caps: measure once, shrink key_width / emits_per_line to
+    their lossless floors; table_size stays the flags' resolution so the
+    table is the same either way.  Returns ``(cfg, rows, auto_caps_fp)``:
+    the rows when they were loaded to measure them, and the file's
+    identity when it was streamed (checked again at the run)."""
     import dataclasses
 
     from locust_tpu_torch.io import loader
-    from locust_tpu_torch.utils.profiling import SpanTimer
 
-    # --auto-caps: measure once, shrink key_width / emits_per_line to
-    # their lossless floors; table_size stays the flags' resolution so the
-    # table is the same either way.
     rows = None
-    auto_caps_fp = None  # the file's identity when measured (checked at run)
+    auto_caps_fp = None
     if args.auto_caps:
         with timer.span("load"), obs.span("cli.load"):
             if args.stream:
@@ -211,6 +251,26 @@ def _fold_stage(args, cfg, device, inter, timer) -> int:
         print(f"[locust] auto-caps: max_token={max_tok}B max_tokens/line={max_per_line} "
               f"-> key_width={cfg.key_width} emits_per_line={cfg.emits_per_line}",
               file=sys.stderr)
+    return cfg, rows, auto_caps_fp
+
+
+def _stale_auto_caps(stream, auto_caps_fp) -> bool:
+    """True (and the error printed) when the corpus changed between the
+    --auto-caps measuring pass and the run."""
+    if auto_caps_fp is None or stream.fingerprint() == auto_caps_fp:
+        return False
+    print("mapreduce: error: corpus changed between the --auto-caps "
+          "measuring pass and the run; re-run (or drop --auto-caps for a "
+          "file that is being written to)", file=sys.stderr)
+    return True
+
+
+def _fold_stage(args, cfg, device, inter, timer) -> int:
+    """Stages 0 and 1: load (or stream) the slice and fold it."""
+    from locust_tpu_torch.io import loader
+    from locust_tpu_torch.utils.profiling import SpanTimer
+
+    cfg, rows, auto_caps_fp = _auto_caps(args, cfg, timer)
 
     # WordCount runs as a compiled PLAN: the canonical DAG (source ->
     # tokenize -> group -> sum -> table) lowers back onto the engine, byte
@@ -223,10 +283,7 @@ def _fold_stage(args, cfg, device, inter, timer) -> int:
         if args.stream:
             stream = loader.StreamingCorpus(args.filename, cfg.line_width, cfg.block_lines,
                                             args.line_start, args.line_end)
-            if auto_caps_fp is not None and stream.fingerprint() != auto_caps_fp:
-                print("mapreduce: error: corpus changed between the --auto-caps "
-                      "measuring pass and the run; re-run (or drop --auto-caps for a "
-                      "file that is being written to)", file=sys.stderr)
+            if _stale_auto_caps(stream, auto_caps_fp):
                 return 1
         else:
             if rows is None:
@@ -274,6 +331,134 @@ def _fold_stage(args, cfg, device, inter, timer) -> int:
             # The plan run already finalized the table; the stream path
             # decodes here.
             _print_table(pairs if pairs is not None else res.to_host_pairs(), args.limit)
+    if args.trace:
+        print(timer.report(), file=sys.stderr)
+    return 0
+
+
+def _join_world(args, device):
+    """This process's place in the mesh world.  With --coordinator (or the
+    count and id) it joins that world; ``--mesh`` alone on a host with
+    several cards starts one more process per card, each joining a world
+    this process serves as rank 0; otherwise a world of one rank forms in
+    this process when the engine builds its mesh.  Returns the child
+    processes started."""
+    import os
+    import subprocess
+
+    import torch
+
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    if args.coordinator is not None:
+        if args.trace_out and args.process_id:
+            # Each process exports its own timeline; rank 0 keeps the name.
+            args.trace_out = f"{args.trace_out}.rank{args.process_id}"
+        mesh_mod.initialize_multihost(args.coordinator, args.num_processes,
+                                      args.process_id, device)
+        return []
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n <= 1:
+        return []
+    store = mesh_mod.coordinator_store(n)
+    coordinator = f"127.0.0.1:{store.port}"
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "locust_tpu_torch", *args.argv, "--coordinator", coordinator,
+         "--num-processes", str(n), "--process-id", str(i)],
+        stdout=subprocess.DEVNULL, env=dict(os.environ)) for i in range(1, n)]
+    mesh_mod.initialize_multihost(coordinator, n, 0, device, store)
+    return children
+
+
+def _mesh_stage(args, cfg, device, inter, timer) -> int:
+    """Stages 0 and 1 over the mesh: the JAX CLI's ``_run_mesh``.  A world
+    this command joined or formed is left again at the end, and the local
+    ranks it started are waited for (their failure is this one's)."""
+    import torch.distributed as dist
+
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg, rows, auto_caps_fp = _auto_caps(args, cfg, timer)
+    own_world = not dist.is_initialized()
+    children = _join_world(args, device)
+    try:
+        rc = _run_mesh(args, cfg, device, inter, timer, rows, auto_caps_fp)
+    finally:
+        if own_world:
+            mesh_mod.shutdown()
+        failed = [c.args for c in children if c.wait() != 0]
+    if failed:
+        print(f"mapreduce: error: mesh ranks failed: {failed}", file=sys.stderr)
+        return 1
+    return rc
+
+
+def _run_mesh(args, cfg, device, inter, timer, rows, auto_caps_fp) -> int:
+    import time
+
+    from locust_tpu_torch.io import loader, serde
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    if args.slices:
+        from locust_tpu_torch.parallel.hierarchical import HierarchicalMapReduce
+
+        mesh = mesh_mod.make_mesh_2d(args.slices, device=device)
+        dmr = HierarchicalMapReduce(mesh, cfg)
+        print(f"[locust] hierarchical mesh: {dmr.n_slices} slice(s) x "
+              f"{dmr.devs_per_slice} device(s), {dmr.lines_per_round} "
+              f"lines/round, bin_capacity={dmr.bin_capacity}, "
+              f"shard_capacity={dmr.shard_capacity}", file=sys.stderr)
+    else:
+        from locust_tpu_torch.parallel.shuffle import DistributedMapReduce
+
+        mesh = mesh_mod.make_mesh(device=device)
+        dmr = DistributedMapReduce(mesh, cfg)
+        print(f"[locust] mesh: {dmr.n_dev} device(s), {dmr.lines_per_round} "
+              f"lines/round, bin_capacity={dmr.bin_capacity}, "
+              f"shard_capacity={dmr.shard_capacity}", file=sys.stderr)
+    t0 = time.perf_counter()
+    with timer.span("load"), obs.span("cli.load"):
+        kw = {}
+        if args.checkpoint_dir:
+            kw = dict(checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every)
+        if args.stream:
+            stream = loader.StreamingCorpus(args.filename, cfg.line_width,
+                                            dmr.lines_per_round, args.line_start,
+                                            args.line_end)
+            if _stale_auto_caps(stream, auto_caps_fp):
+                return 1
+            if args.checkpoint_dir:
+                kw["fingerprint"] = stream.fingerprint()
+        else:
+            if rows is None:
+                rows = loader.load_rows(args.filename, cfg.line_width,
+                                        args.line_start, args.line_end)
+            print(f"[locust] {rows.shape[0]} lines loaded", file=sys.stderr)
+    with timer.span("run"), obs.span("cli.run"):
+        res = dmr.run_stream(stream, **kw) if args.stream else dmr.run(rows, **kw)
+        pairs = res.to_host_pairs()  # gathers every shard
+    run_ms = (time.perf_counter() - t0) * 1e3
+    # One hash shard per shard_capacity rows: the hierarchical table
+    # has devs_per_slice shards, the flat one n_dev.
+    shard_live = res.gather()["valid"].reshape(-1, dmr.shard_capacity).sum(axis=1)
+    for d in range(shard_live.shape[0]):
+        print(f"[locust] shard {d}: {int(shard_live[d])} keys", file=sys.stderr)
+    print(f"[locust] distinct={res.distinct} drain_rounds={res.drain_rounds} "
+          f"emit_overflow={res.emit_overflow} "
+          f"shuffle_overflow={res.shuffle_overflow} "
+          f"truncated={res.truncated} total={run_ms:.1f} ms", file=sys.stderr)
+    if res.truncated:
+        print("[locust] WARN: a shard's table capacity was exceeded; "
+              "tail keys dropped", file=sys.stderr)
+    with timer.span("output"), obs.span("cli.output"):
+        if mesh.rank == 0:  # every rank holds the table; one prints or writes it
+            if args.stage == STAGE_MAP:
+                serde.write_intermediate(pairs, inter[0], args.inter_format)
+                print(f"[locust] node {args.node_num}: intermediate written "
+                      f"to {inter[0]}", file=sys.stderr)
+            else:
+                _print_table(pairs, args.limit)
     if args.trace:
         print(timer.report(), file=sys.stderr)
     return 0

@@ -19,7 +19,9 @@ Every subcommand runs on CUDA unless ``--backend cpu``, takes
 ``--sort-mode`` (default ``bitonic``: the bitonic kernel; pagerank's
 dense pipeline has no sort and accepts it for parity).  index and tfidf
 map through the tokenizer kernel.  ``--mesh`` (the JAX package's sharded
-engines) exits with an error until the port's mesh tier lands.
+PageRank and inverted index) exits with an error until the mesh apps
+land (ROADMAP queue 1 item 9c); WordCount's ``--mesh`` and ``--slices``
+are ported (cli.py).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def build_parser(cmd: str) -> argparse.ArgumentParser:
         p.add_argument("--num-nodes", type=int, default=None,
                        help="default: max node id in the file + 1")
         p.add_argument("--mesh", action="store_true",
-                       help="sharded PageRank (not ported yet: exits 2)")
+                       help="sharded PageRank (a mesh app, not ported yet: exits 2)")
         p.add_argument("--top", type=int, default=None,
                        help="print only the N highest-ranked nodes")
     else:
@@ -75,7 +77,7 @@ def build_parser(cmd: str) -> argparse.ArgumentParser:
                        help="doc id of line i = i // K (default 1: "
                             "one document per line)")
         p.add_argument("--mesh", action="store_true",
-                       help="build across devices (not ported yet: exits 2)")
+                       help="build across devices (a mesh app, not ported yet: exits 2)")
         p.add_argument("--limit", type=int, default=None,
                        help="print only the first N table rows")
         p.add_argument("--block-lines", type=int, default=4096)
@@ -192,9 +194,9 @@ def main(cmd: str, argv) -> int:
               "distributed path)", file=sys.stderr)
         return 2
     if args.mesh:
-        print(f"{PROG}: error: --mesh needs the mesh tier (sharded "
+        print(f"{PROG}: error: --mesh needs the mesh tier's apps (sharded "
               f"{'PageRank' if cmd == 'pagerank' else 'inverted index'} "
-              "on torch.distributed), which is not ported yet", file=sys.stderr)
+              "on torch.distributed), which are not ported yet", file=sys.stderr)
         return 2
     if cmd != "pagerank" and args.lines_per_doc < 1:
         print(f"{PROG}: error: --lines-per-doc must be >= 1", file=sys.stderr)

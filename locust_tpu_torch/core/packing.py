@@ -87,3 +87,10 @@ def hash_pair(lanes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     patterns in, int32 bit patterns out)."""
     h2 = _salted_fold(to_u32(lanes), 0xC2B2AE3D, 0x01000193)
     return to_i32(primary_hash(lanes)), to_i32(h2)
+
+
+def fold_hash(lanes: torch.Tensor) -> torch.Tensor:
+    """The shuffle's bucketing hash of packed key lanes, a salt distinct
+    from both ``hash_pair`` streams (the JAX ``fold_hash``); returns the
+    unsigned 32-bit value held in int64."""
+    return _salted_fold(to_u32(lanes), 0x85EBCA77, None)

@@ -900,7 +900,7 @@ class Worker:
         except (KeyError, TypeError, ValueError) as e:
             return {"status": "error", "error": f"bad plan_stage: {e}"}
         try:
-            src_sub, dst_sub, inv_deg, dangling = self._iterate_graph(
+            src_sub, dst_sub, inv_deg, dangling, grouping = self._iterate_graph(
                 sha, spill_dir, num_nodes, shard, n_shards
             )
         except ValueError as e:
@@ -958,7 +958,7 @@ class Worker:
             new = pagerank_step(
                 src_sub, dst_sub,
                 torch.from_numpy(ranks).to(self.device), inv_deg, dangling,
-                damping, num_nodes,
+                damping, num_nodes, grouping,
             ).cpu().numpy()
         ref = distribute.publish_partition(
             distribute.partition_path(
@@ -983,8 +983,9 @@ class Worker:
         """The iterate stages' loop-invariant state, cached per (corpus
         sha, num_nodes, shard layout): parsed edge arrays restricted to
         this shard's dst range plus the FULL inv_deg/dangling vectors
-        (``pagerank_prep``, bit-exact vs the solo path's prologue), all
-        on the serve device.
+        (``pagerank_prep``, bit-exact vs the solo path's prologue) and
+        the subset's in-edge grouping (``pagerank_grouping``), all on the
+        serve device.
         Raises ``ValueError`` on a missing/damaged spill or a corpus
         that does not parse as an edge list."""
         import numpy as np
@@ -1006,7 +1007,7 @@ class Worker:
             raise ValueError(f"corpus spill unreadable: {e}")
         if hashlib.sha256(data).hexdigest() != sha:
             raise ValueError(f"corpus spill {sha} fails its content hash")
-        from locust_tpu_torch.apps.pagerank import pagerank_prep
+        from locust_tpu_torch.apps.pagerank import pagerank_grouping, pagerank_prep
         from locust_tpu_torch.plan.compile import PlanError, edges_from_bytes
 
         try:
@@ -1019,8 +1020,11 @@ class Worker:
             inv_deg, dangling = pagerank_prep(src, num_nodes, self.device)
         lo, hi = distribute.shard_ranges(num_nodes, n_shards)[shard]
         mask = (dst >= lo) & (dst < hi)
-        ent = (torch.from_numpy(src[mask]).to(self.device),
-               torch.from_numpy(dst[mask]).to(self.device), inv_deg, dangling)
+        src_t = torch.from_numpy(src[mask]).to(self.device)
+        dst_t = torch.from_numpy(dst[mask]).to(self.device)
+        with self._map_lock:
+            grouping = pagerank_grouping(src_t, dst_t, num_nodes, self.device)
+        ent = (src_t, dst_t, inv_deg, dangling, grouping)
         with self._iterate_lock:
             self._iterate_graphs[key] = ent
             while len(self._iterate_graphs) > 4:

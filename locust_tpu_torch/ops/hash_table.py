@@ -1,7 +1,8 @@
 """Fold-level reduce: the sort-free hash-table fold and the sort fold.
 
 Port of ``locust_tpu/ops/hash_table.py``.  ``reduce_into`` / ``fold_into``
-are the one place a fold picks its strategy: the sort modes sort
+are the one place a fold picks its strategy (``combine_or_passthrough``
+is the mesh's local combiner for the hasht family): the sort modes sort
 ``concat(acc, batch)`` and segment-reduce it; the hasht family
 (config.HASHT_FAMILY) aggregates it into an open-addressed table with
 ``aggregate_exact``, no sort on the common path.
@@ -314,6 +315,50 @@ def aggregate_exact(
     return segment_reduce_into(
         sort_and_compact(KVBatch.concat(table, resid), "hashp1"), out_size, combine
     )
+
+
+def combine_or_passthrough(
+    batch: KVBatch, combine: str, probes: int = 2, scatter_impl: str = "xla"
+) -> KVBatch:
+    """Pre-aggregation with an O(n) worst case and no sort: the mesh's
+    local combiner for the hasht family (parallel/shuffle.py).
+
+    Aggregation there is an optimisation, not a contract: every
+    destination re-reduces what it receives.  So when the probes leave
+    rows unresolved, the fallback is not a sort but a compaction: the
+    table's resolved rows, then the unresolved raw rows, cumsum-packed
+    into one batch-sized output (used + unresolved <= valid rows <=
+    batch.size, so nothing drops).  The JAX package's ``lax.cond`` is a
+    host branch: one read of the unresolved count.  "count" is refused,
+    as in ``aggregate_exact``.
+    """
+    if combine == "count":
+        raise ValueError(
+            "combine_or_passthrough cannot take combine='count'; lower it "
+            "via reduce_stage.normalize_combine to emit-1 + 'sum' first"
+        )
+    N = batch.size
+    n_lanes = batch.key_lanes.shape[-1]
+    dev = batch.key_lanes.device
+    table, used, unresolved = hash_aggregate(
+        batch, N, combine, probes=probes, scatter_impl=scatter_impl
+    )
+    if int(unresolved.sum(dtype=torch.int32)) == 0:
+        return table
+    rank_t = torch.cumsum(table.valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    dest_t = (torch.where(table.valid, rank_t, N).long(),)
+    lanes = torch.zeros((N + 1, n_lanes), dtype=torch.int32, device=dev)
+    lanes.index_put_(dest_t, table.key_lanes)
+    vals = torch.zeros((N + 1,), dtype=torch.int32, device=dev)
+    vals.index_put_(dest_t, table.values)
+    valid = torch.zeros((N + 1,), dtype=torch.bool, device=dev)
+    valid.index_put_(dest_t, table.valid)
+    rank_u = torch.cumsum(unresolved.to(torch.int32), 0, dtype=torch.int32) - 1 + used
+    dest_u = (torch.where(unresolved, rank_u, N).long(),)
+    lanes.index_put_(dest_u, batch.key_lanes)
+    vals.index_put_(dest_u, batch.values)
+    valid.index_put_(dest_u, unresolved)
+    return KVBatch(lanes[:N], vals[:N], valid[:N])
 
 
 def reduce_into(

@@ -1,5 +1,6 @@
 """Kernel C: the fused map->aggregate kernel (``csrc/fused_fold.cu``), its
-plain PyTorch version, and the engine's eligibility check.
+plain PyTorch version, and the engines' eligibility checks (one device,
+and per shard of a mesh: ``fused_mesh_eligible``).
 
 Replaces ``locust_tpu/ops/pallas/fused_fold.py`` (``_fused_kernel`` via
 ``fused_block_preagg``).  Same contract (fused_fold.py:36-68, :485-505):
@@ -88,6 +89,44 @@ def fused_engine_eligible(cfg: EngineConfig, map_fn, combine: str) -> tuple[bool
             f"emits_per_block={cfg.emits_per_block} >= 2^24 (the JAX "
             "package's f32 count bound, kept for parity); folding exactly "
             "like 'hasht'"
+        )
+    return True, ""
+
+
+def fused_mesh_eligible(cfg: EngineConfig, map_fn, combine: str, device) -> tuple[bool, str]:
+    """Can the mesh engines run a shard's map and local combine through
+    the fused kernel?  Returns ``(ok, reason)``, decided once when an
+    engine is built (parallel/shuffle.py logs a demotion there and sets
+    ``fused_demoted`` on its results):
+
+    * every check of ``fused_engine_eligible`` applies per shard (a shard
+      folds ``cfg.block_lines`` lines a round, the kernel's block);
+    * the kernel runs on a CUDA rank; a CPU rank folds exactly like
+      "hasht", as the JAX package does off the TPU, so the two packages
+      demote on the same CPU runs;
+    * the kernel's rows (table slots, laid out as the JAX kernel's padded
+      planes, plus each tile's residual rows) fit the shard's
+      ``emits_per_block`` rows: the shuffle step's local combiner returns
+      as many rows as the block has emits, and the kernel's output is
+      padded up to that.
+    """
+    ok, why = fused_engine_eligible(cfg, map_fn, combine)
+    if not ok:
+        return False, why
+    if torch.device(device).type != "cuda":
+        return False, (
+            "mesh fused mode runs the CUDA kernel on a CUDA rank only (a "
+            "CPU rank folds as the JAX package's CPU mesh does); folding "
+            "exactly like 'hasht'"
+        )
+    t_lo = min(512, FUSED_TABLE_SLOTS)
+    preagg_rows = max(8, FUSED_TABLE_SLOTS // t_lo) * t_lo \
+        + cfg.block_lines // FUSED_TILE_LINES * FUSED_RESIDUAL_ROWS
+    if preagg_rows > cfg.emits_per_block:
+        return False, (
+            f"kernel output ({preagg_rows} table+residual rows) exceeds "
+            f"the shard's emit capacity ({cfg.emits_per_block}); folding "
+            "exactly like 'hasht'"
         )
     return True, ""
 

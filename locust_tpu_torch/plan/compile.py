@@ -86,10 +86,11 @@ class CompiledPlan:
                  optimize: bool = True, device=None):
         if mesh:
             raise PlanError(
-                "mesh=True needs the mesh tier (the sharded WordCount, "
-                "inverted index and PageRank on torch.distributed), which "
-                "is not ported yet (ROADMAP.md queue 1 item 9); run the "
-                "plan single-device"
+                "mesh=True needs the mesh tier's plan lowerings (the sharded "
+                "inverted index and PageRank, ROADMAP.md queue 1 item 9c), "
+                "which are not ported yet; the flat and hierarchical "
+                "WordCount engines are (locust_tpu_torch.parallel, the "
+                "CLI's --mesh/--slices); run the plan single-device"
             )
         from locust_tpu_torch.engine import resolve_device
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import select
 import socket
 import threading
 import time
@@ -92,12 +93,24 @@ def parse_worker_addr(spec) -> tuple[str, int]:
     return host, int(port)
 
 
+def _peer_closed(sock: socket.socket) -> bool:
+    """Whether the peer closed this idle connection: it reads as ready
+    with nothing in it (between requests a worker sends nothing)."""
+    try:
+        ready, _, _ = select.select([sock], [], [], 0)
+        return bool(ready) and sock.recv(1, socket.MSG_PEEK) == b""
+    except OSError:
+        return True
+
+
 class PoolWorker:
     """One pool member: address + its persistent connection.
 
     The connection is lazily dialed and serialized under ``_conn_lock``
     (the worker answers frames strictly in order, so one RPC at a time
-    per connection); a failed RPC closes it and the next use redials.
+    per connection); a failed RPC closes it and the next use redials,
+    as does a use that finds the worker closed it (a worker drops a
+    connection idle past its ``conn_timeout``).
     """
 
     def __init__(self, idx: int, addr: tuple[str, int]):
@@ -110,6 +123,8 @@ class PoolWorker:
     def _connect(self, timeout: float) -> socket.socket:
         """Dial (or reuse) the persistent connection.  Caller holds
         ``_conn_lock``."""
+        if self._conn is not None and _peer_closed(self._conn):
+            self._drop_conn()
         if self._conn is None:
             faultplan.check_connect(self.addr[0], self.addr[1])
             self._conn = socket.create_connection(self.addr, timeout=timeout)

@@ -178,6 +178,20 @@ def fused_min_ops(lines: int, width: int) -> int:
     return lines * width
 
 
+def pagerank_gather_min_bytes(num_nodes: int, num_edges: int, index_bytes: int = 8) -> int:
+    """PageRank's ordered gather-add (``csrc/pagerank.cu``): the initial
+    value, the CSR offsets and sources (int64 as the kernel takes them;
+    ``index_bytes=4`` counts int32 indices, the least a graph below 2^31
+    nodes and edges needs), the float32 ranks and inverse degrees in,
+    once each; the float32 totals out."""
+    return 4 + index_bytes * (num_nodes + 1 + num_edges) + 4 * num_nodes * 3
+
+
+def pagerank_gather_min_ops(num_edges: int) -> int:
+    """Its operations: one float32 multiply and one add per edge."""
+    return 2 * num_edges
+
+
 def fold_min_bytes(key_lanes: int, table_size: int, n_blocks: int, block_lines: int,
                    line_width: int, n_folds: int | None = None) -> int:
     """A run's folds: every block's lines read once, and per fold the

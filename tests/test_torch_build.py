@@ -2,9 +2,11 @@
 the CPU can check: the build is keyed by the sources, a missing CUDA
 compiler raises, the smoke script refuses to run without a GPU or without
 the package beside it, and its WordCount, index, tf-idf and PageRank
-oracles agree with the port on the CPU."""
+oracles agree with the port on the CPU.  The rehearsals of its serve,
+pool and mesh phases have files of their own
+(tests/test_torch_build_serve.py, test_torch_build_pool.py,
+test_torch_build_mesh.py)."""
 
-import importlib.util
 import os
 import shutil
 import subprocess
@@ -16,16 +18,7 @@ from locust_tpu_torch import _build
 from locust_tpu_torch.config import EngineConfig
 from locust_tpu_torch.core import bytes_ops
 from locust_tpu_torch.engine import MapReduceEngine
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMOKE = os.path.join(REPO, "chip_smoke.py")
-
-
-def _smoke_module():
-    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from smoke_rig import SMOKE, smoke_module
 
 
 def test_library_path_is_keyed_by_the_sources(tmp_path, monkeypatch):
@@ -76,10 +69,20 @@ def test_chip_smoke_refuses_without_a_gpu_or_the_package(alone, tmp_path):
     assert "chip_smoke:" in out.stderr
 
 
+def test_chip_mesh_refuses_without_a_gpu():
+    """``chip_mesh.py``, the PageRank and mesh phases alone, exits 1 and
+    runs nothing where no card is visible."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(SMOKE))
+    out = subprocess.run([sys.executable, os.path.join(os.path.dirname(SMOKE), "chip_mesh.py")],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1 and out.stdout == ""
+    assert "chip_mesh: no CUDA device" in out.stderr
+
+
 def test_chip_smoke_oracle_equals_the_port_engine():
     """The smoke script's oracle is independent of the code under test;
     on the CPU, at the CLI's widths, both give the same host pairs."""
-    smoke = _smoke_module()
+    smoke = smoke_module()
     lines, nbytes = smoke.replicated_corpus(200_000)
     cfg = EngineConfig(sort_mode="bitonic", use_pallas=True, block_lines=1024)
     assert nbytes >= 200_000 and len(lines) > 2 * cfg.block_lines
@@ -91,7 +94,7 @@ def test_chip_smoke_oracle_equals_the_port_engine():
 
 
 def test_chip_smoke_bound_names_the_larger_time():
-    smoke = _smoke_module()
+    smoke = smoke_module()
     t, by = smoke.bound_ms(3.35e9, 1.0)
     assert by == "bytes" and t == pytest.approx(1.0)
     t, by = smoke.bound_ms(1.0, 67e9)
@@ -107,7 +110,7 @@ def test_chip_smoke_app_oracles_equal_the_port(tmp_path, capfdbinary):
     from locust_tpu_torch import cli
     from locust_tpu_torch.apps.pagerank import pagerank
 
-    smoke = _smoke_module()
+    smoke = smoke_module()
     lines = smoke.replicated_corpus(30_000)[0]
     path = tmp_path / "c.txt"
     path.write_bytes(b"\n".join(lines) + b"\n")
@@ -133,16 +136,18 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
 
     from locust_tpu_torch.distributor import worker
     from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
+    from locust_tpu_torch.ops.kernels.pagerank import gather_add
     from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
     from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
 
-    smoke = _smoke_module()
+    smoke = smoke_module()
     corpus = tmp_path / "c.txt"
     corpus.write_bytes(b"a b\nb c\n")
     log = str(tmp_path / "launches.jsonl")
     monkeypatch.setattr(tokenize_block_kernel, "launches", 3)
     monkeypatch.setattr(bitonic_sort_rows, "launches", 5)
     monkeypatch.setattr(fused_block_preagg, "launches", 7)
+    monkeypatch.setattr(gather_add, "launches", 11)
     argv = [str(corpus), "--backend", "cpu", "--no-timing"]
     for _ in range(2):
         assert smoke._counted_child(log, "locust_tpu_torch.cli", argv) == 0
@@ -150,7 +155,7 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
     with open(log) as f:
         lines = [json.loads(x) for x in f]
     assert lines == [{"module": "locust_tpu_torch.cli", "argv": argv, "pid": os.getpid(),
-                      "tokenize": 3, "bitonic_sort": 5, "fused_fold": 7}] * 2
+                      "tokenize": 3, "bitonic_sort": 5, "fused_fold": 7, "pagerank": 11}] * 2
     monkeypatch.setattr(worker, "MAP_COMMAND", worker.MAP_COMMAND)
     monkeypatch.setattr(worker, "main", lambda args: 0)
     monkeypatch.setattr(worker.Worker, "_handle", worker.Worker._handle)
@@ -172,18 +177,17 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
         lines = [json.loads(x) for x in f][2:]
     assert lines == [{"module": "locust_tpu_torch.distributor.worker", "argv": ["--serve"],
                       "pid": os.getpid(), "cmd": "ping", "tokenize": 3, "bitonic_sort": 5,
-                      "fused_fold": 7, "max_memory_reserved": None},
+                      "fused_fold": 7, "pagerank": 11, "max_memory_reserved": None},
                      {"module": "locust_tpu_torch.distributor.worker", "argv": ["--serve"],
                       "pid": os.getpid(), "cmd": "ping", "tokenize": 0, "bitonic_sort": 4,
-                      "fused_fold": 0, "max_memory_reserved": None}]
+                      "fused_fold": 0, "pagerank": 0, "max_memory_reserved": None}]
 
 
-def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
-    """The card has no jax: every import in the script, at any depth of
-    its functions, names the port, the standard library, numpy or torch."""
+def _top_imports(path: str) -> set:
+    """The top-level package of every import in a file, at any depth."""
     import ast
 
-    with open(SMOKE) as f:
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
@@ -191,122 +195,18 @@ def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
             names.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module.split(".")[0])
+    return names
+
+
+def test_chip_smoke_imports_neither_jax_nor_locust_tpu():
+    """The card has no jax: every import in the script, at any depth of
+    its functions, names the port, the standard library, numpy or torch."""
+    names = _top_imports(SMOKE)
     assert "locust_tpu_torch" in names and "torch" in names
     assert not names & {"jax", "jaxlib", "locust_tpu"}, names
 
 
-def test_chip_smoke_serve_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
-    """``serve_phase`` end to end at small shapes on the CPU (the daemon
-    in process, as processes killed -9 and replayed, under chaos), the
-    plain versions counted as launches: its predicted launch counts,
-    cache answers and counters hold here as they must on the card."""
-    import contextlib
-    import io
-    import types
-
-    import torch
-
-    from locust_tpu_torch import cli
-    from locust_tpu_torch.ops.kernels import fused_fold, sort, tokenize
-
-    smoke = _smoke_module()
-    wrappers = {"tokenize": (tokenize, "tokenize_reference", tokenize.tokenize_block_kernel),
-                "bitonic_sort": (sort, "bitonic_reference", sort.bitonic_sort_rows),
-                "fused_fold": (fused_fold, "fused_preagg_reference", fused_fold.fused_block_preagg)}
-    for mod, ref, wrapper in wrappers.values():
-        def plain(*a, _ref=getattr(mod, ref), _w=wrapper, **k):
-            _w.launches += 1
-            return _ref(*a, **k)
-
-        monkeypatch.setattr(mod, ref, plain)
-
-    by_path = {}
-
-    def counted(fn):
-        for _, _, w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        return out, {name: w.launches for name, (_, _, w) in wrappers.items()}
-
-    def run_cli(name, argv):
-        out = io.BytesIO()
-        stdout = io.TextIOWrapper(out, write_through=True)
-        with contextlib.redirect_stdout(stdout):
-            rc, by_path[name] = counted(lambda: cli.main(argv))
-        assert rc == 0, argv
-        return out.getvalue()  # before the wrapper, and with it `out`, is closed
-
-    bl = 128
-    lines, _ = smoke.replicated_corpus(1 << 20)
-    env = types.SimpleNamespace(
-        torch=torch, dev=torch.device("cpu"), lines=lines, BL=bl, W=128, E=20, K=32,
-        work=str(tmp_path), run_cli=run_cli, counted=counted, by_path=by_path, smi="cpu",
-        cli_extra=["--backend", "cpu", "--block-lines", str(bl)], serve_cfg={"block_lines": bl},
-        serve_big_bytes=200_000, serve_daemon_extra=["--backend", "cpu"],
-        serve_submit_extra=["--block-lines", str(bl)])
-    report = smoke.serve_phase(env)
-    assert report["launches"] == report["expected_launches"] == {
-        "tokenize": 0, "bitonic_sort": 4 + 2 + 32 + 2 + 2 + 8, "fused_fold": 4 + 2 + 32 + 2 + 2}
-    assert report["process"]["state_at_kill"] == "running"
-    assert report["chaos"] == {"poison_job": 1, "deadline_exceeded": 1}
-
-
-def test_chip_smoke_pool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
-    """``pool_phase`` end to end on the CPU at 128-line blocks: a daemon
-    with ``--workers`` over 2 ``--serve`` worker processes (one-block
-    jobs by affinity, a sharded job, tfidf/index/join/PageRank plans, a
-    worker killed -9 inside a batch), then the failover pair (the primary
-    killed -9, the standby promoted by its lease, the old epoch fenced).
-    Every process counts its kernels' plain versions as launches, so the
-    predicted launch counts hold here as they must on the card."""
-    import contextlib
-    import io
-    import types
-
-    import torch
-
-    from locust_tpu_torch import cli
-    from locust_tpu_torch.ops.kernels import fused_fold, sort, tokenize
-
-    smoke = _smoke_module()
-    monkeypatch.setenv(smoke.COUNT_PLAIN_ENV, "1")
-    wrappers = {"tokenize": tokenize.tokenize_block_kernel,
-                "bitonic_sort": sort.bitonic_sort_rows,
-                "fused_fold": fused_fold.fused_block_preagg}
-    by_path = {}
-
-    def counted(fn):
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        return out, {name: w.launches for name, w in wrappers.items()}
-
-    def run_cli(name, argv):
-        out = io.BytesIO()
-        stdout = io.TextIOWrapper(out, write_through=True)
-        with contextlib.redirect_stdout(stdout):
-            rc, by_path[name] = counted(lambda: cli.main(argv))
-        assert rc == 0, argv
-        return out.getvalue()
-
-    bl = 128
-    lines, _ = smoke.replicated_corpus(1 << 20)
-    env = types.SimpleNamespace(
-        torch=torch, dev=torch.device("cpu"), lines=lines, BL=bl, W=128, E=20, K=32,
-        work=str(tmp_path), run_cli=run_cli, counted=counted, by_path=by_path, smi="cpu",
-        cli_extra=["--backend", "cpu", "--block-lines", str(bl)], serve_cfg={"block_lines": bl},
-        serve_big_bytes=60_000, serve_daemon_extra=["--backend", "cpu"],
-        serve_submit_extra=["--block-lines", str(bl)], pool_lease_s=4.0,
-        pool_shard_min_blocks=4)
-    report = smoke.pool_phase(env)
-    # 2 one-block jobs, the big job's 2 shards of 4 and their merge, the
-    # tf folds of tfidf and index (2 splits of 2 blocks each), the killed
-    # worker's job; the fused jobs and the join's 2 splits, twice.
-    assert report["launches"] == report["expected_launches"] == {
-        "tokenize": 0, "bitonic_sort": 2 + 4 + 4 + 1 + 2 * 4 + 1, "fused_fold": 2 + 2 * 4}
-    assert [a["cache"] for a in report["one_block_jobs"]] == ["cold", "warm"] * 2
-    assert report["plans"]["join_repeat"]["worker_compiles"] == [0, 0]
-    assert report["plans"]["pagerank"]["max_abs_delta_vs_solo"] == 0.0
-    fo = report["failover"]
-    assert fo["launches"] == fo["expected_launches"] and fo["old_epoch_ship"] == "stale_epoch"
-    assert fo["epoch"] == 2
+def test_chip_mesh_imports_neither_jax_nor_locust_tpu():
+    names = _top_imports(os.path.join(os.path.dirname(SMOKE), "chip_mesh.py"))
+    assert {"chip_smoke", "locust_tpu_torch", "torch"} <= names
+    assert not names & {"jax", "jaxlib", "locust_tpu"}, names

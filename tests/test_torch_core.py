@@ -195,7 +195,8 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "            'distributor.master', 'distributor.microbench', 'serve', 'serve.jobs',\n"
         "            'serve.scheduler', 'serve.cache', 'serve.batch', 'serve.journal',\n"
         "            'serve.client', 'serve.daemon', 'serve.__main__', 'serve.pool',\n"
-        "            'serve.replicate', 'plan.distribute'):\n"
+        "            'serve.replicate', 'plan.distribute', 'parallel', 'parallel.mesh',\n"
+        "            'parallel.shuffle', 'parallel.hierarchical', 'ops.kernels.pagerank'):\n"
         "    assert 'locust_tpu_torch.' + sub in names, sub\n"
         "import locust_tpu_torch.distributor.protocol, locust_tpu_torch.distributor.worker\n"
         "import locust_tpu_torch.distributor.master, locust_tpu_torch.distributor.microbench\n"

@@ -91,3 +91,44 @@ def test_pagerank_runs_on_cuda_by_default(monkeypatch):
         pagerank(src, dst, 7)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pagerank_prep(src, 7)
+
+
+@pytest.mark.parametrize("seed,n,e", GRAPHS)
+def test_gather_add_plain_versions_equal_jax_step(seed, n, e):
+    """The gather-add's two plain versions (``index_add_`` in the
+    grouping's order, the CPU wrapper's; the CSR walk as explicit adds,
+    the card check's reference) give the JAX step's scatter-add bits."""
+    from locust_tpu_torch.apps.pagerank import pagerank_grouping
+    from locust_tpu_torch.ops.kernels.pagerank import csr_walk_reference, gather_add
+
+    src, dst = _graph(seed, n, e)
+    ranks = np.random.default_rng(seed).random(n).astype(np.float32) / n
+    inv_deg, dangling = pagerank_prep(src, n, device="cpu")
+    offsets, src_by_dst = pagerank_grouping(src, dst, n, device="cpu")
+    init = torch.tensor(np.float32(0.25) / np.float32(n))
+    r = torch.from_numpy(ranks)
+    got = gather_add(init, offsets, src_by_dst, r, inv_deg)
+    walk = csr_walk_reference(init, offsets, src_by_dst, r, inv_deg)
+    direct = init.expand(n).clone().index_add_(
+        0, torch.from_numpy(dst).long(), r[src] * inv_deg[src])
+    assert torch.equal(got, walk) and torch.equal(got, direct)
+    j_inv, j_dang = jprep(src, n)
+    want = np.asarray(jstep(src, dst, ranks, j_inv, j_dang, 0.85, n))
+    step = pagerank_step(src, dst, r, inv_deg, dangling, torch.tensor(0.85), n,
+                         (offsets, src_by_dst)).numpy()
+    assert np.array_equal(step, want)
+
+
+def test_in_edge_grouping_is_stable():
+    """Each node's in-edges keep their edge order: the grouping is a
+    stable sort of ``dst``, with CSR offsets over every node."""
+    from locust_tpu_torch.ops.kernels.pagerank import in_edges
+
+    rng = np.random.default_rng(5)
+    dst = torch.from_numpy(rng.integers(0, 50, 4000))
+    offsets, order = in_edges(dst, 60)
+    assert offsets.dtype == torch.int64 and order.dtype == torch.int64
+    assert offsets.tolist() == [0] + np.cumsum(np.bincount(dst.numpy(), minlength=60)).tolist()
+    for v in range(60):
+        grp = order[offsets[v]:offsets[v + 1]]
+        assert torch.equal(grp, torch.nonzero(dst == v).flatten())

@@ -130,6 +130,15 @@ def test_standby_refuses_the_job_plane_and_answers_stats_like_jax(tmp_path):
     assert go("torch")[:3] == (["not_primary"] * 5, True, "standby")
 
 
+def queued(client, job_id: str) -> bool:
+    """Whether the daemon holds ``job_id`` in its queue (it may not know
+    the job yet)."""
+    try:
+        return client.status(job_id)["state"] == "queued"
+    except (JError, TError):
+        return False
+
+
 @pytest.mark.parametrize("how", ["command", "lease"])
 def test_promotion_replays_under_the_original_ids(tmp_path, how):
     """Jobs acked on the primary and shipped, the primary killed without a
@@ -145,16 +154,19 @@ def test_promotion_replays_under_the_original_ids(tmp_path, how):
             ids = [pc.submit(corpus=c, config=CFG_OVR, no_cache=True)["job_id"]
                    for c in (CORPUS_A, CORPUS_B)]
             wait_replicated(standby, 2)
+            # Both replayed jobs dispatch in one batch, as on the primary:
+            # the standby holds dispatch until the replay queued them both.
+            standby.scheduler.pause()
             abandon(primary)
             sc = CLIENTS[pkg](standby.addr, SECRET, timeout=30.0)
             if how == "command":
                 res = sc.promote()
                 assert res["role"] == "primary"
-            else:
-                deadline = time.monotonic() + 30.0
-                while standby.role != "primary":
-                    assert time.monotonic() < deadline, "the lease never promoted"
-                    time.sleep(0.02)
+            deadline = time.monotonic() + 30.0
+            while not all(queued(sc, j) for j in ids):
+                assert time.monotonic() < deadline, "the promotion never replayed both jobs"
+                time.sleep(0.02)
+            standby.scheduler.resume()
             answers = [result_view(sc.wait(j, timeout=60.0)) for j in ids]
             statuses = [sc.status(j)["state"] for j in ids]
             epoch_file = rep.load_epoch(str(tmp_path / pkg / f"{pkg}-standby-journal"))

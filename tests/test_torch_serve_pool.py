@@ -5,6 +5,8 @@ workers, affinity repeats, and the ``serve.place`` fault site.  Each case
 runs the same calls through a JAX pool and a port pool (on the CPU) and
 holds the answers equal, the pairs to the oracle and the one-shot CLI."""
 
+import time
+
 import pytest
 from torch_serve_rig import (
     CFG_OVR,
@@ -111,6 +113,28 @@ def test_worker_without_serve_answers_like_jax():
             assert "not enabled" in answers[1]["error"]
     finally:
         stop_workers(ws)
+
+
+def test_pool_connection_redials_after_the_worker_idles_it_out():
+    """A worker drops a connection idle past its ``conn_timeout``; the
+    pool's next RPC finds it closed and redials instead of failing the
+    dispatch (and quarantining a healthy worker)."""
+    w = tworker.Worker(secret=SECRET, serve=True, device="cpu", conn_timeout=0.2)
+    w.serve_in_thread()
+    pw = tpool.PoolWorker(0, w.addr)
+    try:
+        first = pw.rpc({"cmd": "ping"}, SECRET, timeout=10.0)
+        conn = pw._conn
+        deadline = time.monotonic() + 10.0
+        while not tpool._peer_closed(conn):
+            assert time.monotonic() < deadline, "the worker never idled the connection out"
+            time.sleep(0.05)
+        assert pw.rpc({"cmd": "ping"}, SECRET, timeout=10.0) == first == {"status": "ok",
+                                                                           "pong": True}
+        assert pw._conn is not conn
+    finally:
+        pw.close()
+        stop_workers([w])
 
 
 def test_pool_mixed_tenant_stream_byte_identical(pools, tmp_path, capsysbinary):

@@ -1,0 +1,387 @@
+"""Shared pieces of the port's mesh tests (tests/test_torch_mesh_*.py).
+
+The scenarios (a corpus, config overrides, engine and run arguments),
+run the same way by a JAX mesh in the test process and by a port world
+of processes on the CPU; a port world is this file run as a script, one
+process per rank:
+
+    python tests/torch_mesh_rig.py torch COORD N PID OUTDIR SUITE
+    python tests/torch_mesh_rig.py jax COORD N PID OUTDIR SUITE
+
+Rank 0 writes ``OUTDIR/<torch|jax>.json`` (each scenario's pairs and
+counters) and ``OUTDIR/<scenario>.npz`` (its gathered table); the ``jax``
+form runs a JAX pod of N processes of one CPU device each.  Every process's output
+goes to files in OUTDIR.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SORT_MODES = ("hash", "hashp", "hashp2", "hashp1", "hash1", "radix", "bitonic", "lex",
+              "hasht", "hasht-mxu", "fused")
+BASE = [b"the quick brown fox jumps over the dog",
+        b"pack my box with five dozen liquor jugs",
+        b"the five boxing wizards jump quickly",
+        b"sphinx of black quartz judge my vow"]
+# Block lines a multiple of 64 and width 128: JAX runs its kernels'
+# interpret mode and engages "fused" as on the single-device engine.
+CFG = {"block_lines": 64, "line_width": 128, "emits_per_line": 8}
+
+
+def lines_of(kind: str) -> list[bytes]:
+    """The seeded corpora of tests/test_distributed.py, scaled to CFG."""
+    if kind == "mixed":
+        rng = np.random.default_rng(7)
+        vocab = [b"word%d" % i for i in range(60)] + [b"the"] * 5
+        return [b" ".join(rng.choice(vocab, size=rng.integers(0, 7)).tolist())
+                for _ in range(700)]
+    if kind == "hot":
+        return [b"the the the the the the"] * 256
+    if kind in ("skew", "trunc"):
+        rng = np.random.default_rng(11 if kind == "skew" else 3)
+        vocab = [b"word%d" % i for i in range(300 if kind == "skew" else 400)]
+        return [b" ".join(rng.choice(vocab, size=6).tolist()) for _ in range(256)]
+    if kind == "tight":
+        return [b" ".join(b"w%04d" % (12 * i + j) for j in range(12)) for i in range(256)]
+    if kind == "resume":
+        return [b"alpha beta", b"beta gamma", b"alpha delta epsilon"] * 400
+    if kind == "same":
+        return [b"same same same"] * 256
+    if kind == "hier":
+        return [b"to be or not to be", b"that is the question",
+                b"to be, to sleep; to dream", b"the the the the"] * 70
+    raise KeyError(kind)
+
+
+# name -> (corpus, cfg overrides, engine kwargs, run kwargs)
+FLAT = {f"mode_{m}": ("mixed", {"sort_mode": m}, {}, {}) for m in SORT_MODES}
+FLAT.update({
+    "hot": ("hot", {}, {"skew_factor": 1.5}, {}),
+    "skew": ("skew", {}, {"skew_factor": 0.1}, {}),
+    "skew_hasht": ("skew", {"sort_mode": "hasht"}, {"skew_factor": 0.1}, {}),
+    "skew_bitonic": ("skew", {"sort_mode": "bitonic"}, {"skew_factor": 0.1}, {}),
+    "drop": ("skew", {}, {"skew_factor": 0.1, "on_overflow": "drop"}, {}),
+    "trunc": ("trunc", {}, {"shard_capacity": 8}, {}),
+    "tight": ("tight", {"emits_per_line": 16}, {"bin_capacity": 8, "shard_capacity": 256}, {}),
+    "count": ("same", {}, {"combine": "count"}, {}),
+    "sync1": ("mixed", {"sort_mode": "hasht"}, {}, {"stats_sync_every": 1}),
+})
+# name -> ((slices, devices per slice), corpus, cfg overrides, engine kwargs)
+HIER = {
+    "h2x2": ((2, 2), "hier", {}, {}),
+    "h4x1": ((4, 1), "hier", {}, {}),
+    "h1x4": ((1, 4), "hier", {}, {}),
+    "h2x2_skew": ((2, 2), "tight", {"emits_per_line": 16},
+                  {"skew_factor": 0.1, "shard_capacity": 2048}),
+    "h2x2_same": ((2, 2), "same", {}, {}),
+    "h2x2_count": ((2, 2), "same", {}, {"combine": "count"}),
+    "h2x2_trunc": ((2, 2), "tight", {"emits_per_line": 16},
+                   {"skew_factor": 0.1, "shard_capacity": 8}),
+}
+HIER_MODES = {f"hmode_{m}": ((2, 2), "hier", {"sort_mode": m}, {}) for m in SORT_MODES}
+STATS = ("distinct", "drain_rounds", "emit_overflow", "shuffle_overflow", "truncated",
+         "fused_kernel", "fused_demoted")
+
+
+def summary(res, table: dict) -> tuple[dict, dict]:
+    out = {k: getattr(res, k) for k in STATS}
+    out["pairs"] = [[k.hex(), v] for k, v in res.to_host_pairs()]
+    return out, {k: np.asarray(v) for k, v in table.items()}
+
+
+def _rows(pkg, kind: str, width: int):
+    return pkg.core.bytes_ops.strings_to_rows(lines_of(kind), width)
+
+
+def run_flat(pkg, parallel, mesh, name: str):
+    """One FLAT scenario on ``mesh`` through package ``pkg`` (a namespace
+    of its EngineConfig and modules); returns ``(summary, table)``."""
+    kind, cfg_kw, eng_kw, run_kw = FLAT[name]
+    cfg = pkg.EngineConfig(**{**CFG, **cfg_kw})
+    res = parallel.DistributedMapReduce(mesh, cfg, **eng_kw).run(
+        _rows(pkg, kind, cfg.line_width), **run_kw)
+    return summary(res, pkg.table_of(res))
+
+
+def run_hier(pkg, parallel, make_mesh_2d, name: str):
+    shape, kind, cfg_kw, eng_kw = {**HIER, **HIER_MODES}[name]
+    cfg = pkg.EngineConfig(**{**CFG, **cfg_kw})
+    res = parallel.HierarchicalMapReduce(make_mesh_2d(*shape), cfg, **eng_kw).run(
+        _rows(pkg, kind, cfg.line_width))
+    return summary(res, pkg.table_of(res))
+
+
+def crash_resume(make_engine, rows, ckpt: str, crash_at: int = 2) -> dict:
+    """Crash at the ``crash_at``-th step of a checkpointed run, resume with
+    a fresh engine; a third run over the complete snapshot steps 0 times."""
+    eng = make_engine()
+    real, calls = eng._step, {"n": 0}
+
+    def crashing(*a):
+        if calls["n"] == crash_at:
+            raise RuntimeError("injected crash")
+        calls["n"] += 1
+        return real(*a)
+
+    eng._step = crashing
+    try:
+        eng.run(rows, checkpoint_dir=ckpt, checkpoint_every=1, stats_sync_every=1)
+    except RuntimeError as e:
+        assert "injected crash" in str(e)
+    else:
+        raise AssertionError("the crash did not fire")
+    return resume(make_engine, rows, ckpt)
+
+
+def resume(make_engine, rows, ckpt: str) -> dict:
+    eng = make_engine()
+    real, steps = eng._step, {"n": 0}
+
+    def counting(*a):
+        steps["n"] += 1
+        return real(*a)
+
+    eng._step = counting
+    res = eng.run(rows, checkpoint_dir=ckpt, checkpoint_every=1)
+    out = {"pairs": [[k.hex(), v] for k, v in res.to_host_pairs()],
+           "resumed_rounds": steps["n"],
+           "nrounds": -(-rows.shape[0] // eng.lines_per_round)}
+    steps["n"] = 0
+    again = eng.run(rows, checkpoint_dir=ckpt, checkpoint_every=1)
+    out["third_run_steps"] = steps["n"]
+    out["third_run_same"] = again.to_host_pairs() == res.to_host_pairs()
+    return out
+
+
+def _torch_pkg():
+    import types
+
+    import locust_tpu_torch.core.bytes_ops  # noqa: F401
+    from locust_tpu_torch import core
+    from locust_tpu_torch.config import EngineConfig
+
+    return types.SimpleNamespace(EngineConfig=EngineConfig, core=core,
+                                 table_of=lambda res: res.gather())
+
+
+def jax_pkg():
+    import types
+
+    import locust_tpu.core.bytes_ops  # noqa: F401
+    from locust_tpu import core
+    from locust_tpu.config import EngineConfig
+
+    def table_of(res):
+        from locust_tpu.parallel.mesh import gather_host_array
+
+        return {k: gather_host_array(getattr(res.table, k))
+                for k in ("key_lanes", "values", "valid")}
+
+    return types.SimpleNamespace(EngineConfig=EngineConfig, core=core, table_of=table_of)
+
+
+def wait_for(path: str, timeout: float = 240.0) -> None:
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.05)
+
+
+def _suite_flat(pkg, parallel, out: dict, tables: dict, outdir: str) -> None:
+    """The port world of 2's suite: every FLAT scenario, run_stream ==
+    run, and a crash and resume."""
+    mesh = parallel.make_mesh(device="cpu")
+    for name in FLAT:
+        out[name], tables[name] = run_flat(pkg, parallel, mesh, name)
+    cfg = pkg.EngineConfig(**CFG)
+    eng = parallel.DistributedMapReduce(mesh, cfg)
+    rows = _rows(pkg, "mixed", cfg.line_width)
+    lpr = eng.lines_per_round
+    out["stream"] = [[k.hex(), v] for k, v in eng.run_stream(
+        rows[i:i + lpr] for i in range(0, rows.shape[0], lpr)).to_host_pairs()]
+    rrows = _rows(pkg, "resume", cfg.line_width)
+    out["crash"] = crash_resume(lambda: parallel.DistributedMapReduce(mesh, cfg), rrows,
+                                os.path.join(outdir, "ckpt_flat"))
+
+
+def _suite_hier(pkg, parallel, out: dict, tables: dict, outdir: str) -> None:
+    """The port world of 4's suite: every HIER scenario, run_stream ==
+    run, a hierarchical and a flat crash and resume over 4 processes,
+    the debug-checks replication check (healthy, then doctored)."""
+    mk = lambda s, d: parallel.make_mesh_2d(s, d, device="cpu")  # noqa: E731
+    for name in HIER:
+        out[name], tables[name] = run_hier(pkg, parallel, mk, name)
+    cfg = pkg.EngineConfig(**CFG)
+    m22 = mk(2, 2)
+    h = parallel.HierarchicalMapReduce(m22, cfg)
+    rows = _rows(pkg, "hier", cfg.line_width)
+    lpr = h.lines_per_round
+    out["hstream"] = [[k.hex(), v] for k, v in h.run_stream(
+        rows[i:i + lpr] for i in range(0, rows.shape[0], lpr)).to_host_pairs()]
+    rrows = _rows(pkg, "resume", cfg.line_width)
+    out["hcrash"] = crash_resume(lambda: parallel.HierarchicalMapReduce(m22, cfg), rrows,
+                                 os.path.join(outdir, "ckpt_hier"))
+    flat = parallel.make_mesh(device="cpu")
+    out["crash4"] = crash_resume(lambda: parallel.DistributedMapReduce(flat, cfg), rrows,
+                                 os.path.join(outdir, "ckpt_flat4"))
+    os.environ["LOCUST_DEBUG_CHECKS"] = "1"
+    out["debug_healthy"] = [[k.hex(), v] for k, v in h.run(rows).to_host_pairs()]
+    orig = h._combine_dbg
+
+    def doctored(table, stats):
+        parts = orig(table, stats)
+        parts["values"][1] += 1  # slice 1 differs
+        return parts
+
+    h._combine_dbg = doctored
+    try:
+        h.run(rows)
+        out["debug_doctored"] = "no error"
+    except RuntimeError as e:
+        out["debug_doctored"] = str(e)
+    del os.environ["LOCUST_DEBUG_CHECKS"]
+    for bad in ((3, None), (4, 4)):
+        try:
+            parallel.make_mesh_2d(*bad, device="cpu")
+            out[f"mesh_error_{bad[0]}"] = "no error"
+        except ValueError as e:
+            out[f"mesh_error_{bad[0]}"] = str(e)
+    try:
+        parallel.HierarchicalMapReduce(flat, cfg)
+        out["axes_error"] = "no error"
+    except ValueError as e:
+        out["axes_error"] = str(e)
+
+
+# The cross-package resume: both packages' worlds of 2 run at once, each
+# crashes a run into its own directory, then resumes the other's.
+RESUME_CFG = {"block_lines": 8, "line_width": 64, "emits_per_line": 8}
+
+
+def _suite_resume(pkg, parallel, mesh, out: dict, outdir: str, me: str, other: str,
+                  barrier, rank: int) -> None:
+    cfg = pkg.EngineConfig(**RESUME_CFG)
+    make = lambda: parallel.DistributedMapReduce(mesh, cfg)  # noqa: E731
+    rows = pkg.core.bytes_ops.strings_to_rows(BASE * make().lines_per_round, cfg.line_width)
+    own = os.path.join(outdir, f"ckpt_{me}")
+    eng = make()
+    real, calls = eng._step, {"n": 0}
+
+    def crashing(*a):
+        if calls["n"] == 2:
+            raise RuntimeError("injected crash")
+        calls["n"] += 1
+        return real(*a)
+
+    eng._step = crashing
+    try:
+        eng.run(rows, checkpoint_dir=own, checkpoint_every=1, stats_sync_every=1)
+    except RuntimeError:
+        pass
+    barrier()
+    if rank == 0:
+        open(os.path.join(outdir, f"{me}.crashed"), "w").close()
+    wait_for(os.path.join(outdir, f"{other}.crashed"))
+    out["resumed_other"] = resume(make, rows, os.path.join(outdir, f"ckpt_{other}"))
+    out["n_lines"] = int(rows.shape[0])
+
+
+def worker(pkg_name: str, coordinator: str, n: int, pid: int, outdir: str, suite: str) -> int:
+    out, tables = {}, {}
+    if pkg_name == "jax":
+        import jax
+
+        from locust_tpu import parallel
+        from locust_tpu.parallel.mesh import initialize_multihost
+
+        initialize_multihost(coordinator, n, pid)
+        pkg = jax_pkg()
+        from jax.experimental import multihost_utils
+
+        rank = jax.process_index()
+        _suite_resume(pkg, parallel, parallel.make_mesh(), out, outdir, "jax", "torch",
+                      lambda: multihost_utils.sync_global_devices("crashed"), rank)
+    else:
+        import torch.distributed as dist
+
+        from locust_tpu_torch import parallel
+        from locust_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh_mod.initialize_multihost(coordinator, n, pid, device="cpu")
+        pkg = _torch_pkg()
+        rank = dist.get_rank()
+        if suite == "flat":
+            _suite_flat(pkg, parallel, out, tables, outdir)
+        elif suite == "hier_modes":
+            for name in HIER_MODES:
+                out[name], tables[name] = run_hier(
+                    pkg, parallel, lambda s, d: parallel.make_mesh_2d(s, d, device="cpu"), name)
+        elif suite == "hier":
+            _suite_hier(pkg, parallel, out, tables, outdir)
+        else:
+            _suite_resume(pkg, parallel, parallel.make_mesh(device="cpu"), out, outdir,
+                          "torch", "jax", dist.barrier, rank)
+        out["comm"] = mesh_mod.COMM
+        mesh_mod.shutdown()
+    if rank == 0:
+        for name, t in tables.items():
+            np.savez(os.path.join(outdir, f"{name}.npz"), **t)
+        with open(os.path.join(outdir, f"{pkg_name}.json.tmp"), "w") as f:
+            json.dump(out, f)
+        os.replace(os.path.join(outdir, f"{pkg_name}.json.tmp"),
+                   os.path.join(outdir, f"{pkg_name}.json"))
+    return 0
+
+
+def start_world(pkg_name: str, n: int, outdir: str, suite: str) -> list:
+    """Start a world of ``n`` processes of this rig (JAX: one CPU device
+    each; one compute thread each, since the ranks share the host's
+    cores); their output goes to ``outdir/<pkg>.<pid>.out|err``."""
+    from locust_tpu_torch.parallel.mesh import free_port
+
+    os.makedirs(outdir, exist_ok=True)
+    coordinator = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", MASTER_ADDR="127.0.0.1",
+               GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=1 "
+                         "--xla_cpu_multi_thread_eigen=false")
+    procs = []
+    for pid in range(n):
+        with open(os.path.join(outdir, f"{pkg_name}.{pid}.out"), "wb") as o, \
+                open(os.path.join(outdir, f"{pkg_name}.{pid}.err"), "wb") as e:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), pkg_name, coordinator, str(n),
+                 str(pid), outdir, suite], env=env, stdout=o, stderr=e))
+    return procs
+
+
+def finish_world(procs: list, outdir: str, pkg_name: str, timeout: float = 240.0) -> dict:
+    """Wait for the world; every rank must exit 0.  Returns rank 0's JSON."""
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(outdir, f"{pkg_name}.{pid}.err"), "rb") as f:
+                err = f.read()[-3000:].decode(errors="replace")
+            raise AssertionError(f"{pkg_name} rank {pid} exited {p.returncode}:\n{err}")
+    with open(os.path.join(outdir, f"{pkg_name}.json")) as f:
+        return json.load(f)
+
+
+if __name__ == "__main__":
+    a = sys.argv[1:]
+    raise SystemExit(worker(a[0], a[1], int(a[2]), int(a[3]), a[4], a[5]))
