@@ -108,7 +108,12 @@ each process's peak memory.  PageRank adds in the CPU's order on the
 card (the gather-add kernel, ``csrc/pagerank.cu``): the card's
 ``pagerank`` CLI must print the CPU CLI's bytes, the pool's PageRank the
 solo engine's, and the kernel must equal its plain version (the CSR walk
-as torch ops) bit for bit.  The kernels'
+as torch ops) bit for bit at the web-sized graph with int32 and with
+int64 indices and on a pool rank shard's dst-restricted edges; its own
+time is reported beside its bytes bound and its chain bound (the longest
+row's dependent adds at the SM clock nvidia-smi reads during the
+timing), with the grouping's build time and its own time by warp-row
+threshold.  The kernels'
 launch counters are set to 0
 just before each path and read just after it; each path must launch each
 kernel exactly as often as its blocks demand.  A distributed job's
@@ -447,13 +452,11 @@ def pagerank_phase(env) -> dict:
     kernel on the card, ``index_add_`` on the CPU), the largest |delta
     rank| against a float64 oracle, iterations per second; and the
     gather-add kernel held bit for bit against its plain version (the CSR
-    walk as torch ops) on the card, with its own time, its bound and
-    ``index_add_``'s time."""
-    from locust_tpu_torch.apps.pagerank import pagerank, pagerank_grouping, pagerank_prep
-    from locust_tpu_torch.ops.kernels.pagerank import csr_walk_reference, gather_add
-    from locust_tpu_torch.utils import roofline
+    walk as torch ops) on the card at both index widths and on a
+    dst-restricted subset, with its own time, its two bounds, the
+    grouping's build time and ``index_add_``'s time."""
+    from locust_tpu_torch.apps.pagerank import pagerank
 
-    torch = env.torch
     iters, damping = 20, 0.85
     with phase("pagerank over a seeded edge list at web-Google's scale, 20 iterations"):
         n, src, dst = synthetic_web_graph()
@@ -515,56 +518,126 @@ def pagerank_phase(env) -> dict:
             f"{out['rank_sum']:.9f}")
         log(f"  pagerank on the card, 3 runs of {iters} iterations: median {m * 1e3:.3f} ms, "
             f"{iters / m:.3f} iterations/s; runs ms {[round(r * 1e3, 3) for r in runs]}")
-        if env.dev.type != "cuda":
-            return out
-        # The kernel alone at this graph's shape, on a seeded rank vector.
-        dev = env.dev
-        inv_deg, _ = pagerank_prep(src, n, dev)
-        offsets, src_by_dst = pagerank_grouping(src, dst, n, dev)
-        ranks = torch.from_numpy(np.random.default_rng(4).random(n).astype(np.float32) / n).to(dev)
-        init = torch.tensor(np.float32(0.3) / np.float32(n), device=dev)
-        s_t = torch.from_numpy(src).to(dev)
-        d_t = torch.from_numpy(dst).to(dev)
-
-        def kernel():
-            return gather_add(init, offsets, src_by_dst, ranks, inv_deg)
-
-        def plain():
-            return csr_walk_reference(init, offsets, src_by_dst, ranks, inv_deg)
-
-        def library():
-            return init.expand(n).clone().index_add_(0, d_t, ranks[s_t] * inv_deg[s_t])
-
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"pagerank gather-add kernel differs from its plain version: "
-                                 f"max abs err {err}")
-        k_ms = cuda_ms(torch, kernel)
-        p_ms = cuda_ms(torch, plain, reps=3, warmup=1)
-        l_ms = cuda_ms(torch, library)
-        k_ops, k_dev, k_own = call_profile(torch, kernel, "gather_add_kernel")
-        l_dev = device_ms(torch, library)
-        b, by = bound_ms(roofline.pagerank_gather_min_bytes(n, len(src)),
-                         roofline.pagerank_gather_min_ops(len(src)))
-        # The same work with int32 indices: the least bytes the function needs.
-        b32, _ = bound_ms(roofline.pagerank_gather_min_bytes(n, len(src), index_bytes=4),
-                          roofline.pagerank_gather_min_ops(len(src)))
-        out["kernel"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                         "library_device_ms": l_dev, "device_ms": k_dev,
-                         "kernel_device_ms": k_own, "device_ops_per_call": k_ops,
-                         "bound_ms": b, "bound_by": by, "bound_int32_ms": b32,
-                         "shape": f"{n} nodes, {len(src)} edges, max in-degree {max_in}"}
-        log(f"  gather-add kernel at {out['kernel']['shape']}: == plain (CSR walk) bit for "
-            f"bit; kernel {k_ms:.4f} ms, {k_ops:g} device ops per call, device {k_dev:.4f} ms, "
-            f"the kernel's own {k_own:.4f} ms ({b / k_own:.4f} of the bound); plain "
-            f"{p_ms:.4f} ms; index_add_ {l_ms:.4f} ms (device {_ms(l_dev)}); bound {b:.6f} ms "
-            f"({by}, int64 indices as laid out; {b32:.6f} ms with int32 indices, "
-            f"{b32 / k_own:.4f} of it); card {env.smi}")
-        if k_ops != 1:
-            raise AssertionError(f"a gather-add call is {k_ops:g} device ops, not 1")
+        if env.dev.type == "cuda":
+            out["kernel"] = gather_add_report(env, n, src, dst, max_in)
     return out
+
+
+def gather_add_report(env, n: int, src, dst, max_in: int) -> dict:
+    """The gather-add kernel alone at a graph's shape, on a seeded rank
+    vector: its int32 grouping (the main path's), the same forced to int64
+    (the other instantiation) and a pool rank shard's dst-restricted
+    subset (most rows empty), each bit for bit against the CSR walk; its
+    times, its bounds, the grouping's build time and a sweep of the
+    warp-row threshold."""
+    from locust_tpu_torch.apps.pagerank import pagerank_grouping, pagerank_prep
+    from locust_tpu_torch.ops.kernels.pagerank import (WARP_ROW_THRESHOLD, csr_walk_reference,
+                                                       gather_add, in_edges)
+    from locust_tpu_torch.plan.distribute import shard_ranges
+    from locust_tpu_torch.utils import roofline
+
+    torch, dev = env.torch, env.dev
+    inv_deg, _ = pagerank_prep(src, n, dev)
+    s_t = torch.from_numpy(src).to(dev)
+    d_t = torch.from_numpy(dst).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grouping = pagerank_grouping(s_t, d_t, n, dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    ranks = torch.from_numpy(np.random.default_rng(4).random(n).astype(np.float32) / n).to(dev)
+    init = torch.tensor(np.float32(0.3) / np.float32(n), device=dev)
+    lo, hi = shard_ranges(n, 2)[0]
+    keep = (d_t >= lo) & (d_t < hi)
+    groupings = {"int32": grouping, "int64": in_edges(s_t, d_t, n, dtype=torch.int64),
+                 "dst-restricted": in_edges(s_t[keep], d_t[keep], n)}
+
+    def kernel(g=grouping):
+        return gather_add(init, *g, ranks, inv_deg)
+
+    def plain(g=grouping):
+        return csr_walk_reference(init, *g, ranks, inv_deg)
+
+    def library():
+        return init.expand(n).clone().index_add_(0, d_t, ranks[s_t] * inv_deg[s_t])
+
+    err = 0.0
+    for name, g in groupings.items():
+        got, want = kernel(g), plain(g)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"pagerank gather-add kernel ({name} grouping) differs "
+                                 f"from its plain version: max abs err {e}")
+        err = max(err, e)
+        log(f"  gather-add, {name} grouping ({g.offsets.dtype}, {g.src_by_dst.shape[0]} "
+            f"edges, {g.warp_rows} warp rows): == plain (CSR walk) bit for bit")
+    k_ms = cuda_ms(torch, kernel)
+    p_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+    l_ms = cuda_ms(torch, library)
+    k_ops, k_dev, k_own = call_profile(torch, kernel, "gather_add_kernel")
+    l_dev = device_ms(torch, library)
+    clock = sm_clock_mhz(torch, kernel)
+    ops = roofline.pagerank_gather_min_ops(len(src))
+    # The bytes at the index width the kernel takes (int32 here), and
+    # at int64; the chain: the longest row's dependent adds.
+    b, by = bound_ms(roofline.pagerank_gather_min_bytes(n, len(src), index_bytes=4), ops)
+    b64, _ = bound_ms(roofline.pagerank_gather_min_bytes(n, len(src)), ops)
+    chain = roofline.pagerank_chain_min_ms(max_in, clock)
+    larger = max(b, chain)
+    # The warp-row threshold against the kernel's own device time.
+    sweep = {}
+    for t in (8, 16, 32, 64, 128):
+        g = in_edges(s_t, d_t, n, threshold=t)
+        sweep[t] = {"warp_rows": g.warp_rows,
+                    "device_ms": device_ms(torch, lambda g=g: kernel(g))}
+    report = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                     "library_device_ms": l_dev, "device_ms": k_dev,
+                     "kernel_device_ms": k_own, "device_ops_per_call": k_ops,
+                     "bound_ms": b, "bound_by": by, "bound_int64_ms": b64,
+                     "chain_bound_ms": chain, "sm_clock_mhz": clock,
+                     "larger_bound": "chain" if chain > b else by,
+                     "share_of_larger_bound": larger / k_own,
+                     "warp_rows": grouping.warp_rows,
+                     "warp_row_threshold": WARP_ROW_THRESHOLD,
+                     "grouping_build_ms": build_ms,
+                     "threshold_sweep": sweep,
+                     "shape": f"{n} nodes, {len(src)} edges, max in-degree {max_in}, "
+                              f"int32 indices"}
+    log(f"  gather-add kernel at {report['shape']}: kernel {k_ms:.4f} ms, "
+        f"{k_ops:g} device ops per call, device {k_dev:.4f} ms, the kernel's own "
+        f"{k_own:.4f} ms; plain {p_ms:.4f} ms; index_add_ {l_ms:.4f} ms (device "
+        f"{_ms(l_dev)}); card {env.smi}")
+    log(f"  gather-add bounds: bytes {b:.6f} ms at int32 ({b / k_own:.4f} of it), "
+        f"{b64:.6f} ms at int64; chain {chain:.6f} ms ({max_in} dependent adds x "
+        f"{roofline.FADD_DEPENDENT_CYCLES} cycles at {clock:g} MHz, nvidia-smi clocks.sm "
+        f"beside the timing); the larger, {report['larger_bound']}: "
+        f"{larger / k_own:.4f} of it")
+    log(f"  gather-add grouping: built in {build_ms:.3f} ms (offsets, sources, schedule); "
+        f"{grouping.warp_rows} warp rows of more than {WARP_ROW_THRESHOLD} in-edges, "
+        f"{n - grouping.warp_rows} thread rows; own device ms by warp-row threshold: "
+        + ", ".join(f"{t}: {_ms(v['device_ms'])} ({v['warp_rows']} warp rows)"
+                    for t, v in sweep.items()))
+    if k_ops != 1:
+        raise AssertionError(f"a gather-add call is {k_ops:g} device ops, not 1")
+    return report
+
+
+def sm_clock_mhz(torch, fn) -> float:
+    """The SM clock (MHz) as ``nvidia-smi --query-gpu=clocks.sm`` reads it
+    while ``fn`` runs back to back on the card."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        while proc.poll() is None:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        return float(proc.communicate(timeout=60)[0].split()[0])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
 
 
 def trace_phase(env) -> None:

@@ -21,8 +21,9 @@ CPU compile adds, so that on the CPU the ranks are the same bits:
   * the contributions are added in edge order onto the dangling share
     ``mass / num_nodes`` (XLA folds that addend into the scatter's
     initial value): ``ops/kernels/pagerank.gather_add`` walks each node's
-    in-edges, grouped once per graph by a stable sort of ``dst``, in edge
-    order, each product rounded to float32 before its add; on the CPU it
+    in-edges, grouped once per graph into one row per node by a stable
+    sort (``pagerank_grouping``), in edge order, each product rounded to
+    float32 before its add; on the CPU it
     is ``index_add_``, which adds in index order, and on CUDA the
     gather-add kernel (``csrc/pagerank.cu``), so the card's ranks are the
     CPU's bits too;
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from locust_tpu_torch.engine import resolve_device
-from locust_tpu_torch.ops.kernels.pagerank import gather_add, in_edges
+from locust_tpu_torch.ops.kernels.pagerank import Grouping, gather_add, in_edges
 
 # XLA's CPU compile reduces in windows of this many elements.
 _XLA_REDUCE_WINDOW = 32
@@ -78,15 +79,14 @@ def pagerank_prep(src, num_nodes: int, device=None):
     return inv_deg, deg == 0
 
 
-def pagerank_grouping(src, dst, num_nodes: int, device=None):
-    """The loop-invariant in-edge grouping ``pagerank_step`` walks:
-    ``(offsets, src_by_dst)``, the CSR offsets of the edges grouped by
-    destination (a stable sort, so each group keeps edge order) and their
-    sources in that order."""
+def pagerank_grouping(src, dst, num_nodes: int, device=None) -> Grouping:
+    """The loop-invariant in-edge grouping ``pagerank_step`` walks
+    (``ops/kernels/pagerank.in_edges``): one row per node, in a schedule
+    of the nodes by in-degree, largest first, each row its in-edges'
+    sources in edge order (a stable sort), with the rows' CSR offsets
+    and how many of them take a warp each."""
     dev = resolve_device(device)
-    s, d = _edges(src, dev), _edges(dst, dev)
-    offsets, order = in_edges(d, num_nodes)
-    return offsets, s[order].contiguous()
+    return in_edges(_edges(src, dev), _edges(dst, dev), num_nodes)
 
 
 def pagerank_step(src, dst, ranks: torch.Tensor, inv_deg: torch.Tensor,

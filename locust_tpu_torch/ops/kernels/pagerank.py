@@ -12,19 +12,26 @@ add.  That is what ``index_add_`` computes on the CPU, where it adds in
 index order, and what the JAX package's scatter-add computes on the CPU;
 on CUDA ``index_add_`` adds in no fixed order.
 
-``in_edges`` groups the edges by destination with a stable sort (the CSR
-offsets and the sources in that order); it is loop-invariant, built once
-per graph.  ``gather_add`` launches the kernel for a CUDA tensor (and
-counts it in ``gather_add.launches``) and takes the plain version,
-``index_add_`` over the grouped edges, only for a CPU tensor.
-``csr_walk_reference`` is the same walk as torch ops, in order on any
-device: the card check holds the kernel against it bit for bit.
+``in_edges`` builds the ``Grouping`` the kernel walks, once per graph (it
+is loop-invariant): the node schedule (node ids by in-degree, largest
+first, a stable sort), the in-edges grouped into one row per node in the
+schedule's order (a stable sort, so each row keeps edge order: the CSR
+offsets by schedule position and the sources in that order) and the
+number of warp rows (rows of more than ``WARP_ROW_THRESHOLD`` in-edges: a
+warp each; the rest a thread each), with int32 indices where the graph
+fits (``index_dtype``).  Its fields unpack in order into ``gather_add``.
+``gather_add`` launches the kernel for a CUDA tensor (and counts it in
+``gather_add.launches``) and takes the plain version, ``index_add_`` over
+the grouped edges, only for a CPU tensor.  ``csr_walk_reference`` is the
+same walk as torch ops, in order on any device: the card check holds the
+kernel against it bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,41 +40,72 @@ from locust_tpu_torch.ops.kernels import KernelLaunchError
 from locust_tpu_torch.ops.kernels.tokenize import device_guard, stream_handle
 
 
-def in_edges(dst: torch.Tensor, num_nodes: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(offsets, order)``: int64 CSR offsets ``[num_nodes + 1]`` of the
-    edges grouped by destination, and ``order`` ``[E]``, the edge indices
-    in that grouping, edge order kept within each group (a stable sort)."""
-    d = dst.to(torch.int64)
-    order = torch.sort(d, stable=True).indices
+# Rows with more in-edges than this take a warp each, the rest a thread.
+WARP_ROW_THRESHOLD = 64
+
+
+class Grouping(NamedTuple):
+    """The in-edge grouping the kernel walks; it unpacks in order into
+    ``gather_add``'s arguments after ``init``."""
+
+    offsets: torch.Tensor  # [num_nodes + 1] CSR offsets of the rows, by schedule position
+    src_by_dst: torch.Tensor  # [E] each row's sources, edge order kept
+    schedule: torch.Tensor  # [num_nodes] row i is node schedule[i]; largest first
+    warp_rows: int  # the first rows, those that take a warp each
+
+
+def index_dtype(num_nodes: int, num_edges: int) -> torch.dtype:
+    """int32 when every index and offset fits (``num_nodes + 1`` and the
+    edge count below 2^31), else int64."""
+    return torch.int32 if max(num_nodes + 1, num_edges) < 2**31 else torch.int64
+
+
+def in_edges(src: torch.Tensor, dst: torch.Tensor, num_nodes: int,
+             threshold: int = WARP_ROW_THRESHOLD, dtype: torch.dtype | None = None) -> Grouping:
+    """The ``Grouping`` of the edges ``src[i] -> dst[i]`` on their device:
+    the schedule a stable sort of the in-degrees, largest first; one row
+    per node in that order, each its in-edges in edge order (a stable
+    sort of the edges by their destination's schedule position); warp
+    rows those of more than ``threshold`` in-edges.  Indices are
+    ``dtype``, by default ``index_dtype``'s choice."""
+    s, d = src.to(torch.int64), dst.to(torch.int64)
     counts = torch.bincount(d, minlength=num_nodes)
+    schedule = torch.sort(counts, descending=True, stable=True).indices
+    position = torch.empty_like(schedule)
+    position[schedule] = torch.arange(num_nodes, device=d.device)
+    order = torch.sort(position[d], stable=True).indices
     offsets = torch.zeros(num_nodes + 1, dtype=torch.int64, device=d.device)
-    torch.cumsum(counts, 0, out=offsets[1:])
-    return offsets, order
+    torch.cumsum(counts[schedule], 0, out=offsets[1:])
+    it = dtype or index_dtype(num_nodes, s.shape[0])
+    return Grouping(offsets.to(it), s[order].to(it), schedule.to(it),
+                    int((counts > threshold).sum()))
 
 
 def csr_walk_reference(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: torch.Tensor,
-                       ranks: torch.Tensor, inv_deg: torch.Tensor) -> torch.Tensor:
-    """Plain version as explicit adds in order, on any device: the nodes
-    sorted by in-degree, step ``j`` adds every node's ``j``-th contribution
-    (the nodes with more than ``j`` in-edges are a prefix)."""
+                       schedule: torch.Tensor, warp_rows: int, ranks: torch.Tensor,
+                       inv_deg: torch.Tensor) -> torch.Tensor:
+    """Plain version as explicit adds in order, on any device: the rows
+    sorted by length, step ``j`` adds every row's ``j``-th contribution
+    (the rows of more than ``j`` edges are a prefix) to its node's total;
+    ``warp_rows`` changes nothing here."""
     n = offsets.shape[0] - 1
     contrib = ranks[src_by_dst] * inv_deg[src_by_dst]
     deg = offsets[1:] - offsets[:-1]
     by_deg = torch.sort(deg, descending=True, stable=True).indices
-    start, deg_sorted = offsets[:-1][by_deg], deg[by_deg]
+    start, deg_sorted, node = offsets[:-1][by_deg], deg[by_deg], schedule[by_deg].long()
     acc = init.to(torch.float32).expand(n).clone()
     for j in range(int(deg_sorted[0]) if n else 0):
         live = int((deg_sorted > j).sum())
-        nodes = by_deg[:live]
+        nodes = node[:live]
         acc[nodes] = acc[nodes] + contrib[start[:live] + j]
     return acc
 
 
-def _plain(init, offsets, src_by_dst, ranks, inv_deg) -> torch.Tensor:
+def _plain(init, offsets, src_by_dst, schedule, warp_rows, ranks, inv_deg) -> torch.Tensor:
     """Plain version for a CPU tensor: ``index_add_`` in the grouping's
     order (the CPU adds in index order)."""
     n = offsets.shape[0] - 1
-    dst_sorted = torch.repeat_interleave(torch.arange(n), offsets[1:] - offsets[:-1])
+    dst_sorted = torch.repeat_interleave(schedule.long(), (offsets[1:] - offsets[:-1]).long())
     return init.expand(n).clone().index_add_(
         0, dst_sorted, ranks[src_by_dst] * inv_deg[src_by_dst])
 
@@ -76,36 +114,47 @@ def _plain(init, offsets, src_by_dst, ranks, inv_deg) -> torch.Tensor:
 def _kernel():
     fn = _build.load("pagerank").locust_pagerank_gather_add
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def gather_add(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: torch.Tensor,
-               ranks: torch.Tensor, inv_deg: torch.Tensor) -> torch.Tensor:
+               schedule: torch.Tensor, warp_rows: int, ranks: torch.Tensor,
+               inv_deg: torch.Tensor) -> torch.Tensor:
     """``total[v] = init + sum of v's contributions in edge order``:
     float32 ``[num_nodes]`` on ``ranks``'s device.  ``init`` is a float32
-    scalar tensor, ``offsets``/``src_by_dst`` the int64 grouping of
-    ``in_edges`` (sources, not edge indices), ``ranks``/``inv_deg``
+    scalar tensor; ``offsets``, ``src_by_dst``, ``schedule`` and
+    ``warp_rows`` the fields of ``in_edges``'s ``Grouping`` (sources, not
+    edge indices; int32 or int64, all three alike); ``ranks``/``inv_deg``
     float32 ``[num_nodes]``."""
     dev = ranks.device
     if dev.type == "cpu":
-        return _plain(init, offsets, src_by_dst, ranks, inv_deg)
+        return _plain(init, offsets, src_by_dst, schedule, warp_rows, ranks, inv_deg)
     if dev.type != "cuda":
         raise ValueError(f"pagerank gather-add: no kernel for device {dev}")
     n = offsets.shape[0] - 1
-    args = [init.reshape(1), offsets, src_by_dst, ranks, inv_deg]
-    for name, t, dtype in zip(("init", "offsets", "src_by_dst", "ranks", "inv_deg"), args,
-                              (torch.float32, torch.int64, torch.int64, torch.float32,
-                               torch.float32)):
+    it = offsets.dtype
+    if it not in (torch.int32, torch.int64):
+        raise ValueError(f"pagerank gather-add: indices must be int32 or int64, not {it}")
+    args = [init.reshape(1), offsets, src_by_dst, schedule, ranks, inv_deg]
+    for name, t, dtype in zip(("init", "offsets", "src_by_dst", "schedule", "ranks", "inv_deg"),
+                              args, (torch.float32, it, it, it, torch.float32, torch.float32)):
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"pagerank gather-add: {name} must be a contiguous {dtype} "
                              f"tensor on {dev}")
-    if ranks.shape[0] != n or inv_deg.shape[0] != n:
-        raise ValueError("pagerank gather-add: ranks and inv_deg must have num_nodes rows")
+    if ranks.shape[0] != n or inv_deg.shape[0] != n or schedule.shape[0] != n:
+        raise ValueError("pagerank gather-add: ranks, inv_deg and schedule must have "
+                         "num_nodes rows")
+    if not 0 <= warp_rows <= n:
+        raise ValueError(f"pagerank gather-add: warp_rows {warp_rows} outside 0..{n}")
     total = torch.empty(n, dtype=torch.float32, device=dev)
+    # Each node's product, then each warp-row edge's: the kernel's first phase.
+    scratch = torch.empty(n + src_by_dst.shape[0], dtype=torch.float32, device=dev)
     with device_guard(dev):
-        rc = _kernel()(*(t.data_ptr() for t in args), total.data_ptr(), n, stream_handle(dev))
+        rc = _kernel()(*(t.data_ptr() for t in args), scratch.data_ptr(), total.data_ptr(), n,
+                       int(warp_rows), it.itemsize, dev.index, stream_handle(dev))
     if rc != 0:
         raise KernelLaunchError(f"pagerank gather-add kernel launch failed: cudaError {rc}")
     gather_add.launches += 1

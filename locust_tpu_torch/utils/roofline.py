@@ -180,16 +180,30 @@ def fused_min_ops(lines: int, width: int) -> int:
 
 def pagerank_gather_min_bytes(num_nodes: int, num_edges: int, index_bytes: int = 8) -> int:
     """PageRank's ordered gather-add (``csrc/pagerank.cu``): the initial
-    value, the CSR offsets and sources (int64 as the kernel takes them;
-    ``index_bytes=4`` counts int32 indices, the least a graph below 2^31
-    nodes and edges needs), the float32 ranks and inverse degrees in,
-    once each; the float32 totals out."""
+    value, the CSR offsets and sources (``index_bytes=4`` for the int32
+    indices the kernel takes below 2^31 nodes and edges, 8 for int64),
+    the float32 ranks and inverse degrees in, once each; the float32
+    totals out.  The node schedule is the kernel's layout, not the
+    function's work, and is not counted."""
     return 4 + index_bytes * (num_nodes + 1 + num_edges) + 4 * num_nodes * 3
 
 
 def pagerank_gather_min_ops(num_edges: int) -> int:
     """Its operations: one float32 multiply and one add per edge."""
     return 2 * num_edges
+
+
+# Cycles from one float32 add to the next that depends on it (Hopper's
+# FP32 pipe latency).
+FADD_DEPENDENT_CYCLES = 4
+
+
+def pagerank_chain_min_ms(max_in_degree: int, sm_clock_mhz: float) -> float:
+    """The gather-add's second bound: a row's adds are one dependent chain
+    (the CPU's left fold in float32; partial sums merged afterwards would
+    round differently), so the longest row takes its in-degree times a
+    dependent add's latency at the SM clock, whatever runs beside it."""
+    return max_in_degree * FADD_DEPENDENT_CYCLES / (sm_clock_mhz * 1e3)
 
 
 def fold_min_bytes(key_lanes: int, table_size: int, n_blocks: int, block_lines: int,

@@ -126,6 +126,47 @@ def test_chip_smoke_app_oracles_equal_the_port(tmp_path, capfdbinary):
     np.testing.assert_allclose(got, smoke.pagerank_oracle(src, dst, 300, 20, 0.85), rtol=1e-5)
 
 
+def test_chip_smoke_gather_add_report_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.gather_add_report``, the kernel's part of the PageRank
+    phase, on the CPU at a small skewed graph with the card's timers
+    stubbed: the int32, int64 and dst-restricted groupings each equal the
+    CSR walk, and the report carries both bounds (the chain, a hub of
+    700 in-edges, the larger), the warp rows and the threshold sweep."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from locust_tpu_torch.ops.kernels.pagerank import WARP_ROW_THRESHOLD
+    from locust_tpu_torch.utils import roofline
+
+    smoke = smoke_module()
+    monkeypatch.setattr(smoke, "cuda_ms", lambda torch, fn, **k: (fn(), 0.5)[1])
+    monkeypatch.setattr(smoke, "device_ms", lambda torch, fn, **k: (fn(), 0.25)[1])
+    monkeypatch.setattr(smoke, "call_profile",
+                        lambda torch, fn, kernel, **k: (fn(), (1.0, 0.5, 0.5))[1])
+    monkeypatch.setattr(smoke, "sm_clock_mhz", lambda torch, fn: (fn(), 1980.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    rng = np.random.default_rng(9)
+    n, e = 2000, 12000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    dst[:700] = 3
+    deg = np.bincount(dst, minlength=n)
+    env = types.SimpleNamespace(torch=torch, dev=torch.device("cpu"), smi="cpu")
+    rep = smoke.gather_add_report(env, n, src, dst, int(deg.max()))
+    assert rep["max_abs_err"] == 0.0 and rep["device_ops_per_call"] == 1.0
+    assert rep["bound_ms"] == pytest.approx(
+        roofline.pagerank_gather_min_bytes(n, e, index_bytes=4) / smoke.PEAK_BYTES_PER_S * 1e3)
+    assert rep["bound_by"] == "bytes" and rep["bound_int64_ms"] > rep["bound_ms"]
+    assert rep["chain_bound_ms"] == pytest.approx(int(deg.max()) * 4 / 1980e3)
+    assert rep["larger_bound"] == "chain"
+    assert rep["share_of_larger_bound"] == pytest.approx(rep["chain_bound_ms"] / 0.5)
+    t = rep["warp_row_threshold"]
+    assert t == WARP_ROW_THRESHOLD and rep["warp_rows"] == int((deg > t).sum())
+    assert {t: v["warp_rows"] for t, v in rep["threshold_sweep"].items()} == {
+        t: int((deg > t).sum()) for t in (8, 16, 32, 64, 128)}
+
+
 def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, capfdbinary):
     """``chip_smoke.py --counted-child LOG MODULE ARGS``: MODULE's main
     runs, then one JSON line with its argv and this process's launch

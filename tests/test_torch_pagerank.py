@@ -2,7 +2,10 @@
 JAX package on the CPU: ``pagerank``, ``pagerank_prep`` and
 ``pagerank_step`` on seeded graphs of up to 2,000 nodes with dangling
 nodes, to rtol 1e-6 and, since the port adds in XLA's CPU order, bit
-for bit; the XLA-order sum alone; and the edge-list parser's errors."""
+for bit; the XLA-order sum alone; the edge-list parser's errors; and the
+gather-add's grouping and node schedule, with a Python walk of the
+schedule as the CUDA kernel walks it (warp rows by chunks, then thread
+rows), bit for bit against the CSR walk and JAX's step."""
 
 import jax
 import jax.numpy as jnp
@@ -93,42 +96,241 @@ def test_pagerank_runs_on_cuda_by_default(monkeypatch):
         pagerank_prep(src, 7)
 
 
-@pytest.mark.parametrize("seed,n,e", GRAPHS)
-def test_gather_add_plain_versions_equal_jax_step(seed, n, e):
-    """The gather-add's two plain versions (``index_add_`` in the
-    grouping's order, the CPU wrapper's; the CSR walk as explicit adds,
-    the card check's reference) give the JAX step's scatter-add bits."""
+# ``csrc/pagerank.cu``'s kSpan (a warp row's group of edges), kUnroll (a
+# thread row's edges in flight) and kRowStart (a warp row's start, in
+# edges, which sizes the warp pool).
+WARP_ROW_SPAN, THREAD_ROW_SPAN, WARP_ROW_START = 256, 8, 512
+
+
+def _warp_pool(grouping, warps):
+    """The kernel's split of a grid of ``warps`` warps: how many take the
+    warp rows (about the longest row's work each, rows counted with a
+    start of ``WARP_ROW_START`` edges, at most the warp rows' share of
+    the edges, at least one, and one warp left for the thread rows), the
+    rest taking the thread rows."""
+    off, rows = grouping.offsets.numpy().astype(np.int64), grouping.warp_rows
+    if rows == 0:
+        return 0
+    warp_edges, num_edges, longest = off[rows], off[-1], off[1] - off[0]
+    share = warps * warp_edges // num_edges if num_edges > 0 else warps
+    pool = -(-(warp_edges + WARP_ROW_START * rows) // (longest + WARP_ROW_START))
+    pool = max(1, min(pool, share, rows))
+    return min(pool, warps - 1) if warps > 1 else pool
+
+
+def _schedule_walk(init, grouping, ranks, inv_deg, warps=12):
+    """What ``csrc/pagerank.cu`` walks, in Python, on a grid of ``warps``
+    warps: first every node's contribution and every warp-row edge's
+    product, each rounded to float32; then the warp pool's warps take the
+    warp rows round robin, every other round backwards, each adding its
+    products in groups of ``WARP_ROW_SPAN`` edges (a short last group
+    adds its live edges only), and the other warps' threads take the
+    thread rows, each gathering its sources' contributions
+    ``THREAD_ROW_SPAN`` edges at a time, each add predicated on the row's
+    length.  Row ``i`` is node ``schedule[i]``; each total is written
+    once."""
+    off = grouping.offsets.numpy().astype(np.int64)
+    src, sched = grouping.src_by_dst.numpy(), grouping.schedule.numpy()
+    r, d = ranks.numpy(), inv_deg.numpy()
+    n, rows = len(sched), grouping.warp_rows
+    contrib = r * d
+    prod = r[src[:off[rows]]] * d[src[:off[rows]]]
+    total = np.full(n, np.nan, np.float32)
+    pool = _warp_pool(grouping, warps)
+
+    def write(i, acc):
+        assert np.isnan(total[sched[i]])
+        total[sched[i]] = acc
+
+    for w in range(pool):
+        for rnd in range(-(-rows // pool)):
+            i = rnd * pool + (w if rnd % 2 == 0 else pool - 1 - w)
+            if i >= rows:
+                continue
+            acc, length = np.float32(init), int(off[i + 1] - off[i])
+            for done in range(0, length, WARP_ROW_SPAN):
+                for p in prod[off[i] + done: off[i] + min(length, done + WARP_ROW_SPAN)]:
+                    acc = acc + p
+            write(i, acc)
+    first = pool if pool < warps else 0  # a grid of one warp takes both
+    pool_threads = 32 * (warps - first)
+    for t in range(pool_threads):
+        for i in range(rows + t, n, pool_threads):
+            acc, length = np.float32(init), int(off[i + 1] - off[i])
+            for done in range(0, length, THREAD_ROW_SPAN):
+                for k in range(THREAD_ROW_SPAN):
+                    if k < length - done:
+                        acc = acc + contrib[src[off[i] + done + k]]
+            write(i, acc)
+    assert not np.isnan(total).any()
+    return torch.from_numpy(total)
+
+
+def _check_gather_add(src, dst, n, inv_src=None, seed=0):
+    """The gather-add's plain versions (``index_add_`` in the grouping's
+    order, the CPU wrapper's; the CSR walk as explicit adds, the card
+    check's reference) and the schedule's walk give the JAX step's
+    scatter-add bits.  ``inv_src`` (default ``src``) is the full source
+    column the inverse degrees come from, as in the pool's epochs over a
+    dst-restricted subset."""
+    import importlib
+
     from locust_tpu_torch.apps.pagerank import pagerank_grouping
     from locust_tpu_torch.ops.kernels.pagerank import csr_walk_reference, gather_add
 
-    src, dst = _graph(seed, n, e)
+    port = importlib.import_module("locust_tpu_torch.apps.pagerank")
+    inv_src = src if inv_src is None else inv_src
     ranks = np.random.default_rng(seed).random(n).astype(np.float32) / n
-    inv_deg, dangling = pagerank_prep(src, n, device="cpu")
-    offsets, src_by_dst = pagerank_grouping(src, dst, n, device="cpu")
+    inv_deg, dangling = pagerank_prep(inv_src, n, device="cpu")
+    grouping = pagerank_grouping(src, dst, n, device="cpu")
     init = torch.tensor(np.float32(0.25) / np.float32(n))
     r = torch.from_numpy(ranks)
-    got = gather_add(init, offsets, src_by_dst, r, inv_deg)
-    walk = csr_walk_reference(init, offsets, src_by_dst, r, inv_deg)
+    got = gather_add(init, *grouping, r, inv_deg)
+    walk = csr_walk_reference(init, *grouping, r, inv_deg)
+    sched = _schedule_walk(init, grouping, r, inv_deg)
+    assert all(torch.equal(_schedule_walk(init, grouping, r, inv_deg, warps), sched)
+               for warps in (1, 2, 5))
     direct = init.expand(n).clone().index_add_(
         0, torch.from_numpy(dst).long(), r[src] * inv_deg[src])
-    assert torch.equal(got, walk) and torch.equal(got, direct)
-    j_inv, j_dang = jprep(src, n)
+    assert torch.equal(got, walk) and torch.equal(got, direct) and torch.equal(got, sched)
+    j_inv, j_dang = jprep(inv_src, n)
     want = np.asarray(jstep(src, dst, ranks, j_inv, j_dang, 0.85, n))
     step = pagerank_step(src, dst, r, inv_deg, dangling, torch.tensor(0.85), n,
-                         (offsets, src_by_dst)).numpy()
+                         grouping).numpy()
     assert np.array_equal(step, want)
+    # The step through the schedule's walk, as the card runs it.
+    orig = port.gather_add
+    try:
+        port.gather_add = lambda i, o, s, sc, w, rk, iv: _schedule_walk(
+            i, port.Grouping(o, s, sc, w), rk, iv)
+        walked = pagerank_step(src, dst, r, inv_deg, dangling, torch.tensor(0.85), n,
+                               grouping).numpy()
+    finally:
+        port.gather_add = orig
+    assert np.array_equal(walked, want)
+    return grouping
+
+
+def _row_lengths_graph(lengths, seed=6):
+    """One destination row per entry of ``lengths`` (node i has
+    ``lengths[i]`` in-edges), edges shuffled so each row's edge order is
+    not its source order; node 0 has no out-edge (dangling)."""
+    rng = np.random.default_rng(seed)
+    n = len(lengths)
+    dst = np.repeat(np.arange(n), lengths).astype(np.int32)
+    rng.shuffle(dst)
+    src = rng.integers(1, n, len(dst)).astype(np.int32)
+    return src, dst, n
+
+
+def _hub_graph():
+    """A hub with 2,500 in-edges over 3,000 skewed edges of 300 nodes."""
+    src, dst = _graph(7, 300, 3000)
+    dst[np.random.default_rng(7).permutation(3000)[:2500]] = 11
+    return src, dst, 300
+
+
+def _dst_subset_graph():
+    """The pool's epoch shape: a rank shard's edges (dst in the first
+    quarter of the nodes) over all 2,000 nodes, so most rows are empty;
+    the inverse degrees come from the full source column."""
+    src, dst = _graph(0, 2000, 9000)
+    keep = dst < 500
+    return src[keep], dst[keep], 2000, src
+
+
+SPECIAL = {
+    "hub": _hub_graph,
+    # Rows at the edges of a chunk (32), of a thread row's step (8), of a
+    # warp row's group (256) and of its prefetch two groups ahead (512).
+    "chunk_edges": lambda: _row_lengths_graph(
+        [0, 1, 31, 32, 33, 64, 65, 7, 8, 9, 255, 256, 257, 511, 512, 513, 769, 0, 2]),
+    "one_node": lambda: (np.zeros(3, np.int32), np.zeros(3, np.int32), 1),
+    "seven_nodes": lambda: _row_lengths_graph([3, 0, 70, 1, 0, 65, 5], seed=8),
+}
+
+
+@pytest.mark.parametrize("case", [*(f"graph{i}" for i in range(len(GRAPHS))), *SPECIAL,
+                                  "dst_subset"])
+def test_gather_add_plain_versions_equal_jax_step(case):
+    """The gather-add's two plain versions and the walk of its schedule
+    give the JAX step's scatter-add bits: on the seeded graphs, a hub row
+    of 2,500 in-edges, rows of 0, 1, 31, 32, 33, 64, 65 ... 769 edges, one
+    node and seven, and a dst-restricted subset (most rows empty)."""
+    inv_src = None
+    if case.startswith("graph"):
+        seed, n, e = GRAPHS[int(case[5:])]
+        src, dst = _graph(seed, n, e)
+    elif case == "dst_subset":
+        src, dst, n, inv_src = _dst_subset_graph()
+    else:
+        src, dst, n = SPECIAL[case]()
+    from locust_tpu_torch.ops.kernels.pagerank import WARP_ROW_THRESHOLD
+
+    grouping = _check_gather_add(src, dst, n, inv_src)
+    deg = np.bincount(dst, minlength=n)
+    assert grouping.warp_rows == int((deg > WARP_ROW_THRESHOLD).sum())
+    if case in ("hub", "chunk_edges", "seven_nodes"):
+        assert grouping.warp_rows > 0 and grouping.warp_rows < n
+    if case == "dst_subset":
+        assert (deg == 0).sum() >= 1500
 
 
 def test_in_edge_grouping_is_stable():
-    """Each node's in-edges keep their edge order: the grouping is a
-    stable sort of ``dst``, with CSR offsets over every node."""
+    """Each node's in-edges keep their edge order: one row per node in
+    the schedule's order (a stable sort of the edges by their
+    destination's schedule position), with CSR offsets over every row, in
+    int32 where the graph fits."""
     from locust_tpu_torch.ops.kernels.pagerank import in_edges
 
     rng = np.random.default_rng(5)
     dst = torch.from_numpy(rng.integers(0, 50, 4000))
-    offsets, order = in_edges(dst, 60)
-    assert offsets.dtype == torch.int64 and order.dtype == torch.int64
-    assert offsets.tolist() == [0] + np.cumsum(np.bincount(dst.numpy(), minlength=60)).tolist()
-    for v in range(60):
-        grp = order[offsets[v]:offsets[v + 1]]
-        assert torch.equal(grp, torch.nonzero(dst == v).flatten())
+    offsets, order, schedule, _ = in_edges(torch.arange(4000), dst, 60)
+    assert offsets.dtype == torch.int32 and order.dtype == torch.int32
+    deg = np.bincount(dst.numpy(), minlength=60)
+    assert offsets.tolist() == [0] + np.cumsum(deg[schedule.numpy()]).tolist()
+    for i, v in enumerate(schedule.tolist()):
+        row = order[offsets[i]:offsets[i + 1]]
+        assert torch.equal(row.long(), torch.nonzero(dst == v).flatten())
+
+
+@pytest.mark.parametrize("threshold", [0, 1, 8, 32, 100, 10_000])
+def test_schedule_covers_every_node_once(threshold):
+    """The schedule is a permutation of the nodes, by in-degree largest
+    first, ties in node order (a stable sort); its warp rows are its
+    first rows, those of more than ``threshold`` in-edges."""
+    from locust_tpu_torch.ops.kernels.pagerank import in_edges
+
+    src, dst = _graph(2, 1999, 20000)
+    n = 1999
+    g = in_edges(torch.from_numpy(src), torch.from_numpy(dst), n, threshold=threshold)
+    sched = g.schedule.numpy()
+    assert sorted(sched.tolist()) == list(range(n))
+    deg = np.bincount(dst, minlength=n)
+    assert sched.tolist() == sorted(range(n), key=lambda v: (-deg[v], v))
+    assert g.warp_rows == int((deg > threshold).sum())
+    assert (deg[sched[:g.warp_rows]] > threshold).all()
+    assert (deg[sched[g.warp_rows:]] <= threshold).all()
+
+
+def test_index_width_is_int32_below_2_to_the_31():
+    """int32 indices when ``num_nodes + 1`` and the edge count are below
+    2^31, else int64; a grouping forced to int64 holds the same values
+    and gives the same sums."""
+    from locust_tpu_torch.ops.kernels.pagerank import gather_add, in_edges, index_dtype
+
+    assert index_dtype(2**31 - 2, 2**31 - 1) == torch.int32
+    assert index_dtype(2**31 - 1, 5) == torch.int64
+    assert index_dtype(5, 2**31) == torch.int64
+    assert index_dtype(1, 0) == torch.int32
+    src, dst = _graph(3, 33, 100)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    g32, g64 = in_edges(s, d, 33), in_edges(s, d, 33, dtype=torch.int64)
+    assert {t.dtype for t in g32[:3]} == {torch.int32}
+    assert {t.dtype for t in g64[:3]} == {torch.int64}
+    assert all(torch.equal(a.long(), b) for a, b in zip(g32[:3], g64[:3]))
+    assert g32.warp_rows == g64.warp_rows
+    ranks = torch.from_numpy(np.random.default_rng(3).random(33).astype(np.float32))
+    inv = torch.from_numpy(np.random.default_rng(4).random(33).astype(np.float32))
+    init = torch.tensor(np.float32(0.01))
+    assert torch.equal(gather_add(init, *g32, ranks, inv), gather_add(init, *g64, ranks, inv))
