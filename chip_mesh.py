@@ -1,12 +1,14 @@
-"""``chip_smoke.py``'s PageRank and mesh phases alone, on this host's cards.
+"""``chip_smoke.py``'s PageRank, mesh and mesh apps phases alone, on this
+host's cards.
 
-    python3 chip_mesh.py [pagerank] [mesh] [--report FILE]
+    python3 chip_mesh.py [pagerank] [mesh] [mesh_apps] [--report FILE]
 
-Builds the kernels, then runs the named phases (both by default) over
-the same 32 MiB replicated corpus and web-Google-sized graph as
+Builds the kernels, then runs the named phases (all three by default)
+over the same 32 MiB replicated corpus and web-Google-sized graph as
 ``chip_smoke.py``, with the same checks and launch predictions.  On a
-host with several cards ``--mesh`` alone forms one NCCL rank per card.
-``--report FILE`` writes the mesh phase's report as JSON.  Exits 1 when
+host with several cards ``--mesh`` alone forms one NCCL rank per card
+(``pagerank --mesh`` and ``index --mesh`` too, in the mesh apps phase).
+``--report FILE`` writes the mesh phases' reports as JSON.  Exits 1 when
 no card is visible.
 """
 
@@ -31,12 +33,14 @@ def main(argv: list[str]) -> int:
         print("chip_mesh: no CUDA device", file=sys.stderr)
         return 1
     from locust_tpu_torch import _build
+    from locust_tpu_torch.config import EngineConfig
+    from locust_tpu_torch.core import bytes_ops
 
     report = None
     if "--report" in argv:
         i = argv.index("--report")
         report, argv = argv[i + 1], argv[:i] + argv[i + 2:]
-    which = argv or ["pagerank", "mesh"]
+    which = argv or ["pagerank", "mesh", "mesh_apps"]
     t0 = time.perf_counter()
     _build.build()
     smi = smoke._run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -67,14 +71,19 @@ def main(argv: list[str]) -> int:
             run_cli=functools.partial(smoke.run_cli_counted, by_path),
             check_counts=functools.partial(smoke.check_launches, by_path, expected),
             counted=smoke.counted, median_s=median_s, smi=smi, cli_extra=[],
-            mesh_ckpt_every=8, mesh_crash_gen=24)
+            mesh_ckpt_every=8, mesh_crash_gen=24,
+            cfg=EngineConfig(sort_mode="bitonic", use_pallas=True),
+            rows=bytes_ops.strings_to_rows(lines, width))
+        reps = {}
         if "pagerank" in which:
             smoke.pagerank_phase(env)
         if "mesh" in which:
-            rep = smoke.mesh_phase(env)
-            if report:
-                with open(report, "w") as f:
-                    json.dump(rep, f, indent=1)
+            reps["mesh"] = smoke.mesh_phase(env)
+        if "mesh_apps" in which:
+            reps["mesh_apps"] = smoke.mesh_apps_phase(env)
+        if report:
+            with open(report, "w") as f:
+                json.dump(reps, f, indent=1)
     smoke.log(f"done in {time.perf_counter() - t0:.1f} s; {smi}")
     return 0
 

@@ -104,7 +104,20 @@ process (NCCL) under ``bitonic`` and ``fused`` (kernel C per shard,
 checkpointed world crashed by an ``io.ckpt_write`` fault at a snapshot
 and resumed, and ``--slices 2`` over 2 and 4 processes; every stdout the
 single-device CLI's, with the all-to-all's bytes and time per round and
-each process's peak memory.  PageRank adds in the CPU's order on the
+each process's peak memory.  Then the mesh apps: ``pagerank --mesh``
+(``ShardedPageRank``) over the web-sized graph in a world of 1 in this
+process and worlds of 2 and 4 processes sharing the card, each stdout
+the same world's ``--backend cpu`` stdout, two gather-add launches per
+rank and iteration, with the largest distance to a float64 oracle and
+the lines differing from the single-device CLI reported; the gather-add
+at a world of 2's send-slot and receive shapes (sources and rows two
+index spaces) bit for bit against the CSR walk at int32 and int64, with
+its times and bounds; ``index --mesh`` in worlds of 1 and 2 against the
+oracle (kernel A once per rank and round); ``compile_plan(wordcount_plan(),
+cfg, mesh=True)`` in this process under ``bitonic`` and ``hasht``; and
+``DistributedSort.sort_rows`` over >= 1 Mi of the corpus's tokens and
+``sort_strings`` over a duplicate-heavy list retried once, in worlds of
+1 and 2, against numpy's lexsort.  PageRank adds in the CPU's order on the
 card (the gather-add kernel, ``csrc/pagerank.cu``): the card's
 ``pagerank`` CLI must print the CPU CLI's bytes, the pool's PageRank the
 solo engine's, and the kernel must equal its plain version (the CSR walk
@@ -390,12 +403,16 @@ def apps_phase(env) -> dict:
     with phase(f"the apps: index and tfidf over the corpus file, --lines-per-doc {lpd}"):
         tf, n_docs = oracle_docs(env.lines, lpd, env.W, env.E, env.K)
         want = {"index": render_postings(tf), "tfidf": render_tfidf(tf, n_docs)}
+        env.postings_want = want["index"]  # index --mesh prints it too
         log(f"  oracle: {n_docs} docs, {len(tf)} distinct (word, doc) pairs, "
             f"{len({w for w, _ in tf})} distinct words")
         for app, mode, sorts in (("index", "bitonic", 0), ("tfidf", "bitonic", env.nblocks)):
             name = f"cli_{app}"
+            t0 = time.perf_counter()
             out = env.run_cli(name, [app, env.corpus_file, "--lines-per-doc", str(lpd),
                                      "--sort-mode", mode, *env.cli_extra])
+            if app == "index":  # the mesh apps' phase holds index --mesh beside it
+                env.index_single = (out, time.perf_counter() - t0)
             got_rows, want_rows = out.count(b"\n"), want[app].count(b"\n")
             if out != want[app]:
                 raise AssertionError(f"{app}: stdout differs from the oracle "
@@ -468,7 +485,9 @@ def pagerank_phase(env) -> dict:
         log(f"  {n} nodes, {len(src)} edges, {int((deg == 0).sum())} dangling nodes, "
             f"max out-degree {int(deg.max())}, max in-degree {max_in}")
         argv = ["pagerank", path, "--num-nodes", str(n), "--num-iters", str(iters)]
+        t0 = time.perf_counter()
         out_dev = env.run_cli("cli_pagerank", argv + env.cli_extra)
+        single_s = time.perf_counter() - t0
         out_cpu = env.run_cli("cli_pagerank_cpu", argv + ["--backend", "cpu"])
         # One gather-add per iteration on the card; the CPU's plain version
         # is no launch.
@@ -502,6 +521,10 @@ def pagerank_phase(env) -> dict:
             raise AssertionError(f"pagerank: the card differs from the CPU: {differ} printed "
                                  f"lines, max |delta| {d_cpu:.3e}")
         env.check_counts("cli_pagerank", "cli_pagerank_cpu")
+        # The mesh apps' phase runs pagerank --mesh over the same file and
+        # holds it beside this run of the single-device CLI.
+        env.pagerank_graph = (n, src, dst, path, oracle)
+        env.pagerank_single = (out_dev, single_s)
         pagerank(src, dst, n, 1, damping, device=env.dev)  # warm-up
         m, runs = env.median_s(lambda: pagerank(src, dst, n, iters, damping, device=env.dev))
         out = {"nodes": n, "edges": int(len(src)), "iters": iters, "max_in_degree": max_in,
@@ -1040,8 +1063,9 @@ def _log_worker_commands(log_path: str, module: str, args: list[str], worker_cls
 
 def _counted_child(log_path: str, module: str, args: list[str]) -> int:
     """``chip_smoke.py --counted-child LOG MODULE ARGS...``: a process of
-    the distributor, serve-pool or failover phase.  Runs
-    ``MODULE.main(ARGS)``, then appends one JSON line to LOG: MODULE, ARGS
+    the distributor, serve-pool, failover or mesh phases.  Runs
+    ``MODULE.main(ARGS)`` (``MODULE:FUNCTION`` runs ``FUNCTION(ARGS)``),
+    then appends one JSON line to LOG: MODULE, ARGS
     and each kernel wrapper's launch count in this process.  A worker runs
     each of its maps as such a child of ``locust_tpu_torch.cli``, and
     appends a line for each command it handles that launched a kernel (a
@@ -1050,7 +1074,8 @@ def _counted_child(log_path: str, module: str, args: list[str]) -> int:
 
     if os.environ.get(COUNT_PLAIN_ENV):
         _count_plain_versions()
-    mod = importlib.import_module(module)
+    name, _, entry = module.partition(":")  # MODULE or MODULE:FUNCTION
+    mod = importlib.import_module(name)
     if module == "locust_tpu_torch.distributor.worker":
         mod.MAP_COMMAND = tuple(_counted(log_path, "locust_tpu_torch.cli"))
         _log_worker_commands(log_path, module, args, mod.Worker)
@@ -1060,7 +1085,7 @@ def _counted_child(log_path: str, module: str, args: list[str]) -> int:
         if "--mesh" in args or "--slices" in args:
             extra["mesh"] = stack.enter_context(_mesh_recorder())
         try:
-            return mod.main(args)
+            return getattr(mod, entry or "main")(args)
         finally:
             if extra:
                 from locust_tpu_torch.parallel.mesh import COMM
@@ -2230,15 +2255,20 @@ def pool_phase(env) -> dict:
     return report
 
 
-def _mesh_world(env, name: str, n: int, argv: list[str], log_path: str, plan=None):
-    """``n`` processes of ``python -m locust_tpu_torch ... --mesh`` joined
-    through ``--coordinator/--num-processes/--process-id``, each under the
-    counting wrapper; returns ``(rcs, stdouts, launch lines, wall s)``."""
+def _mesh_world(env, name: str, n: int, argv: list[str], log_path: str, plan=None,
+                module: str = "locust_tpu_torch.cli", threads: int | None = None):
+    """``n`` processes of ``python -m locust_tpu_torch ... --mesh`` (or of
+    ``module``) joined through ``--coordinator/--num-processes/
+    --process-id``, each under the counting wrapper (``threads``: each
+    process's CPU thread count); returns ``(rcs, stdouts, launch lines,
+    wall s)``."""
     from locust_tpu_torch.parallel.mesh import free_port
 
     open(log_path, "w").close()  # emptied just before the world
     coord = f"127.0.0.1:{free_port()}"
     extra = [] if plan is None else ["--fault-plan", json.dumps(plan)]
+    proc_env = env.mesh_env if threads is None else dict(env.mesh_env,
+                                                          OMP_NUM_THREADS=str(threads))
     procs, outs = [], []
     t0 = time.perf_counter()
     for pid in range(n):
@@ -2246,9 +2276,9 @@ def _mesh_world(env, name: str, n: int, argv: list[str], log_path: str, plan=Non
         outs.append(out_path)
         with open(out_path, "wb") as o, open(out_path[:-4] + ".err", "wb") as e:
             procs.append(subprocess.Popen(
-                [*_counted(log_path, "locust_tpu_torch.cli"), *argv, "--coordinator", coord,
+                [*_counted(log_path, module), *argv, "--coordinator", coord,
                  "--num-processes", str(n), "--process-id", str(pid), *extra],
-                cwd=HERE, env=env.mesh_env, stdout=o, stderr=e))
+                cwd=HERE, env=proc_env, stdout=o, stderr=e))
     try:
         for p in procs:
             p.wait(timeout=600)
@@ -2263,6 +2293,13 @@ def _mesh_world(env, name: str, n: int, argv: list[str], log_path: str, plan=Non
         with open(path, "rb") as f:
             stdouts.append(f.read())
     return [p.returncode for p in procs], stdouts, _launch_lines(log_path), wall
+
+
+def _mesh_env() -> dict:
+    """The environment of a mesh world's processes: gloo on the loopback,
+    this checkout first on the path."""
+    return dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"),
+                PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
 
 
 def mesh_phase(env) -> dict:
@@ -2292,9 +2329,7 @@ def mesh_phase(env) -> dict:
     work = os.path.join(env.work, "mesh")
     os.makedirs(work, exist_ok=True)
     log_path = os.path.join(work, "launches.jsonl")
-    env.mesh_env = dict(os.environ, GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"),
-                        PYTHONPATH=os.pathsep.join(
-                            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    env.mesh_env = _mesh_env()
     report = {"card": env.smi}
 
     def rounds(world: int) -> int:
@@ -2428,6 +2463,445 @@ def mesh_phase(env) -> dict:
         world_run("mesh_hier_2x1", 2, "bitonic", ["--slices", "2"], slices=2)
         world_run("mesh_hier_2x2", 4, "bitonic", ["--slices", "2"], slices=2)
     report["comm_in_this_process"] = COMM
+    return report
+
+
+# The sample sort's rows: at least 1 Mi of the corpus's tokens.
+SORT_ROWS = (1 << 20) + 4096
+
+
+def sort_world(args: list[str]) -> int:
+    """``chip_smoke.py --counted-child LOG chip_smoke:sort_world OUTDIR
+    BACKEND --coordinator C --num-processes N --process-id I``: one rank
+    of the sample sort's world.  Sorts ``OUTDIR/rows.npy`` with
+    ``DistributedSort.sort_rows`` and the strings of ``OUTDIR/dups.npy``
+    with ``sort_strings`` from ``skew_factor`` 1; process 0 writes
+    ``OUTDIR/sorted.npz``: the sorted keys as rows, their values, the
+    overflow and the ``sort_rows`` calls ``sort_strings`` took."""
+    outdir, backend = args[0], args[1]
+    coord, n, pid = args[args.index("--coordinator") + 1], int(
+        args[args.index("--num-processes") + 1]), int(args[args.index("--process-id") + 1])
+    from locust_tpu_torch.apps.sample_sort import DistributedSort, sort_strings
+    from locust_tpu_torch.config import EngineConfig
+    from locust_tpu_torch.core import bytes_ops
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.initialize_multihost(coord, n, pid, device=backend)
+    try:
+        mesh = mesh_mod.make_mesh(device=backend)
+        out = _sort_checks(mesh, np.load(os.path.join(outdir, "rows.npy")),
+                           bytes_ops.rows_to_strings(np.load(os.path.join(outdir, "dups.npy"))),
+                           EngineConfig(key_width=32), DistributedSort, sort_strings, bytes_ops,
+                           skew=1.0)
+        if mesh.rank == 0:
+            np.savez(os.path.join(outdir, "sorted.npz"), **out)
+    finally:
+        mesh_mod.shutdown()
+    return 0
+
+
+def _sort_checks(mesh, rows, dups, cfg, DistributedSort, sort_strings, bytes_ops, skew):
+    """The sort's two runs on ``mesh``: ``sort_rows`` of ``rows`` (keys as
+    rows and values, in order, and the overflow) and ``sort_strings`` of
+    ``dups`` from ``skew`` (the sorted strings as rows, and the number of
+    ``sort_rows`` calls it took)."""
+    res = DistributedSort(mesh, cfg, -(-rows.shape[0] // mesh.size)).sort_rows(rows)
+    pairs = res.to_host_sorted()
+    calls, real = [], DistributedSort.sort_rows
+
+    def counting(self, *a, **k):
+        got = real(self, *a, **k)
+        calls.append(got.overflow)
+        return got
+
+    DistributedSort.sort_rows = counting
+    try:
+        strings = sort_strings(dups, mesh, cfg, skew_factor=skew)
+    finally:
+        DistributedSort.sort_rows = real
+    return {"keys": bytes_ops.strings_to_rows([k for k, _ in pairs], cfg.key_width),
+            "values": np.array([v for _, v in pairs], np.int64),
+            "overflow": np.int64(res.overflow),
+            "dups_sorted": bytes_ops.strings_to_rows(strings, cfg.key_width),
+            "attempt_overflows": np.array(calls, np.int64)}
+
+
+def _check_sort(name: str, got: dict, rows: np.ndarray, dups: np.ndarray) -> dict:
+    """The sorted keys equal numpy's lexsort of the same rows; each run
+    of equal keys carries the same multiset of values (the row indices);
+    the duplicate-heavy strings sort to numpy's order after one retry."""
+    idx = np.arange(rows.shape[0])
+    cols = [rows[:, c] for c in range(rows.shape[1] - 1, -1, -1)]
+    order = np.lexsort([idx, *cols])
+    keys, values = got["keys"], got["values"]
+    if int(got["overflow"]) or not np.array_equal(keys, rows[order]):
+        raise AssertionError(f"{name}: sorted keys differ from numpy's lexsort "
+                             f"(overflow {int(got['overflow'])})")
+    by_run = np.lexsort([values, *[keys[:, c] for c in range(keys.shape[1] - 1, -1, -1)]])
+    if not np.array_equal(values[by_run], idx[order]):
+        raise AssertionError(f"{name}: a run of equal keys carries other values")
+    d_order = np.lexsort([dups[:, c] for c in range(dups.shape[1] - 1, -1, -1)])
+    attempts = [int(v) for v in got["attempt_overflows"]]
+    if not np.array_equal(got["dups_sorted"], dups[d_order]):
+        raise AssertionError(f"{name}: sort_strings of the duplicate-heavy list differs")
+    if len(attempts) != 2 or attempts[0] == 0 or attempts[1] != 0:
+        raise AssertionError(f"{name}: sort_strings took attempts with overflows {attempts}, "
+                             "expected one retry")
+    return {"rows": int(rows.shape[0]), "attempt_overflows": attempts}
+
+
+def mesh_apps_phase(env) -> dict:
+    """The mesh apps on the card, each through the entry point a user
+    calls and each path's launches counted exactly:
+
+    1. ``pagerank --mesh`` over the web-sized graph, 20 iterations, in a
+       world of 1 in this process and worlds of 2 and 4 processes sharing
+       the card (gloo): each stdout the same world's ``--backend cpu``
+       stdout, the gather-add launched twice per rank and iteration (the
+       send and the receive sum of ``ShardedPageRank``); the largest
+       |rank - float64 oracle| and the lines differing from the
+       single-device CLI are reported; ``DistributedPageRank.run`` in a
+       world of 1 in this process, bit for bit against the CPU world of 1,
+       one gather-add per iteration; and the gather-add alone at a world
+       of 2's send-slot and receive shapes (sources and rows two index
+       spaces, the receive sum unweighted), bit for bit against the CSR
+       walk at int32 and int64, with its times and bounds;
+    2. ``index --mesh`` over the corpus file, one document per block, in
+       worlds of 1 and 2: the oracle's bytes, kernel A once per rank and
+       round;
+    3. ``compile_plan(wordcount_plan(), cfg, mesh=True)`` in this process
+       under ``bitonic`` (kernels A and B) and ``hasht`` (rewritten to
+       ``fused``: kernel C per round): the CLI's bytes;
+    4. ``DistributedSort.sort_rows`` over >= 1 Mi of the corpus's tokens
+       and ``sort_strings`` over a duplicate-heavy list that overflows once
+       and is retried, in a world of 1 in this process and of 2 processes:
+       keys in numpy's lexsort order, each run of equal keys with its
+       values as a multiset."""
+    from locust_tpu_torch.apps.pagerank import DistributedPageRank, ShardedPageRank
+    from locust_tpu_torch.apps.sample_sort import DistributedSort, sort_strings
+    from locust_tpu_torch.config import EngineConfig
+    from locust_tpu_torch.core import bytes_ops
+    from locust_tpu_torch.ops.kernels.pagerank import (Grouping, csr_walk_reference,
+                                                       gather_add)
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+    from locust_tpu_torch.plan import wordcount_plan
+    from locust_tpu_torch.plan.compile import compile_plan
+    from locust_tpu_torch.utils import roofline
+
+    t_phase = time.perf_counter()
+    torch, dev = env.torch, env.dev
+    on_card = dev.type == "cuda"
+    work = os.path.join(env.work, "mesh_apps")
+    os.makedirs(work, exist_ok=True)
+    log_path = os.path.join(work, "launches.jsonl")
+    env.mesh_env = _mesh_env()
+    report = {"card": env.smi}
+    cpu_threads = max(1, (os.cpu_count() or 2) // 2)
+    iters = 20
+
+    def world(name, n, argv, cpu=False, module="locust_tpu_torch.cli"):
+        """A world of ``n`` processes; its rank 0's stdout, the launches
+        summed over its processes and its wall seconds."""
+        rcs, outs, lines, wall = _mesh_world(env, name, n, argv, log_path, module=module,
+                                             threads=max(1, cpu_threads // n) if cpu else None)
+        if rcs != [0] * n or len(lines) != n:
+            errs = []
+            for pid in range(n):
+                with open(os.path.join(env.work, f"{name}.{pid}.err"), "rb") as f:
+                    errs.append(f.read()[-1500:])
+            raise AssertionError(f"{name}: exit codes {rcs}, {len(lines)} launch lines: {errs}")
+        if any(o for o in outs[1:]):
+            raise AssertionError(f"{name}: a rank other than 0 printed")
+        return outs[0], {k: sum(ln[k] for ln in lines) for k in KERNELS}, wall
+
+    def check(name, got, want):
+        env.by_path[name], env.expected[name] = got, want
+        env.check_counts(name)
+
+    # ---- 1. pagerank --mesh
+    graph = getattr(env, "pagerank_graph", None)
+    if graph is None:  # chip_mesh.py's mesh_apps alone
+        n, src, dst = synthetic_web_graph()
+        path = os.path.join(env.work, "edges.txt")
+        with open(path, "wb") as f:
+            f.write("".join(f"{a}\t{b}\n" for a, b in zip(src.tolist(), dst.tolist())).encode())
+        oracle = pagerank_oracle(src, dst, n, iters, 0.85)
+    else:
+        n, src, dst, path, oracle = graph
+    argv = ["pagerank", path, "--num-nodes", str(n), "--num-iters", str(iters), "--mesh"]
+    pr_extra = [] if on_card else ["--backend", "cpu"]  # pagerank takes no block flags
+    # The single-device CLI, timed beside the worlds: pagerank_phase's run,
+    # else (chip_mesh.py's mesh_apps alone) one here.
+    single, single_s = getattr(env, "pagerank_single", (None, None))
+    if single is None:
+        t0 = time.perf_counter()
+        single = env.run_cli("mesh_apps_pagerank_single", argv[:-1] + pr_extra)
+        single_s = time.perf_counter() - t0
+        check("mesh_apps_pagerank_single", env.by_path["mesh_apps_pagerank_single"],
+              {"pagerank": iters})
+    single_rows = single.splitlines()
+    d_single = float(np.abs(np.array([float(r.split(b"\t")[1]) for r in single_rows])
+                            - oracle).max())
+    pr = {"max_abs_delta_single_device_cli_vs_float64_oracle": d_single,
+          "single_device_cli_s": single_s}
+    log(f"  the single-device pagerank CLI: {single_s:.3f} s in process")
+    # ``--mesh`` alone is one rank per visible card: a world of one in
+    # this process on a one-card host; on a host of more cards the CLI
+    # starts the other ranks itself, and rank 0's launches are counted.
+    cards = torch.cuda.device_count() if on_card else 1
+    worlds = ("a world of 1 in process, worlds of 2 and 4 processes sharing the card"
+              if cards == 1 else f"--mesh alone, a world of {cards} (one rank a card)")
+    with phase(f"the mesh apps: pagerank --mesh over {n} nodes, {len(src)} edges, {iters} "
+               f"iterations, {worlds}, each against the same world on the CPU"):
+        for w in (cards, 2, 4) if cards == 1 else (cards,):
+            name = f"mesh_pagerank_w{w}"
+            if w == cards:
+                t0 = time.perf_counter()
+                out = env.run_cli(name, argv + pr_extra)
+                wall = time.perf_counter() - t0
+                got, ranks_counted = env.by_path[name], 1
+                t0 = time.perf_counter()
+                cpu = (env.run_cli(name + "_cpu", argv + ["--backend", "cpu"]) if w == 1 else
+                       world(name + "_cpu", w, argv + ["--backend", "cpu"], cpu=True)[0])
+                cpu_wall = time.perf_counter() - t0
+            else:
+                out, got, wall = world(name, w, argv + pr_extra)
+                cpu, _, cpu_wall = world(name + "_cpu", w, argv + ["--backend", "cpu"], cpu=True)
+                ranks_counted = w
+            check(name, got, {"pagerank": 2 * iters * ranks_counted})
+            rows = out.splitlines()
+            if len(rows) != n or out != cpu:
+                bad = sum(a != b for a, b in zip(rows, cpu.splitlines()))
+                raise AssertionError(f"{name}: {len(rows)} rows; stdout differs from the CPU "
+                                     f"world of {w}: {bad} lines")
+            printed = np.array([float(r.split(b"\t")[1]) for r in rows])
+            d_oracle = float(np.abs(printed - oracle).max())
+            # Reported; a sanity bound only: a sum over the ranks rounds
+            # otherwise than one device's, not ten times as far.
+            tol = 10 * d_single + 1e-5 * float(oracle.max())
+            if not np.isfinite(printed).all() or d_oracle > tol:
+                raise AssertionError(f"{name}: |delta| {d_oracle:.3e} against the oracle, above "
+                                     f"{tol:.3e}")
+            differ = sum(a != b for a, b in zip(rows, single_rows))
+            pr[f"w{w}"] = {"wall_s": wall, "cpu_world_wall_s": cpu_wall, "launches": got,
+                           "max_abs_delta_printed_vs_float64_oracle": d_oracle,
+                           "lines_differing_from_single_device_cli": differ,
+                           "lines_differing_from_cpu_world": 0}
+            log(f"  world of {w}: stdout == the CPU world's ({n} lines), {wall:.3f} s (the CPU "
+                f"world {cpu_wall:.3f} s); printed ranks vs float64 oracle {d_oracle:.6e} "
+                f"(the single-device CLI's {d_single:.6e}; sanity bound {tol:.3e}); {differ} of "
+                f"{n} lines differ from the single-device "
+                f"CLI (a two-level sum rounds otherwise); launches {got}")
+
+    with phase(f"the mesh apps: DistributedPageRank.run over the same graph, {iters} "
+               "iterations, a world of 1 in process, against the CPU world of 1's bits"):
+        def edge_sharded(device):
+            try:
+                return DistributedPageRank(mesh_mod.make_mesh(device=device), n).run(
+                    src, dst, iters)
+            finally:
+                mesh_mod.shutdown()
+
+        t0 = time.perf_counter()
+        got_r, got = counted(lambda: edge_sharded(dev))
+        wall = time.perf_counter() - t0
+        check("mesh_distributed_pagerank_w1", got, {"pagerank": iters})
+        want_r = edge_sharded("cpu")
+        if got_r.shape != (n,) or not np.isfinite(got_r).all():
+            raise AssertionError("DistributedPageRank: ranks not finite or of the wrong shape")
+        if not np.array_equal(got_r, want_r):
+            raise AssertionError(f"DistributedPageRank: the card differs from the CPU world of "
+                                 f"1 on {int((got_r != want_r).sum())} of {n} ranks")
+        d_oracle = float(np.abs(got_r.astype(np.float64) - oracle).max())
+        pr["distributed_w1"] = {"wall_s": wall, "launches": got,
+                                "max_abs_delta_vs_float64_oracle": d_oracle}
+        log(f"  ranks == the CPU world of 1's, bit for bit; vs float64 oracle {d_oracle:.6e}; "
+            f"{wall:.3f} s; launches {got}")
+
+    with phase("the mesh apps: the gather-add at a world of 2's send-slot and receive shapes "
+               "(two index spaces), bit for bit against the CSR walk at int32 and int64"):
+        sp = ShardedPageRank(mesh_mod.Mesh(0, 2, ("data",), (2,), {"data": None}, dev, "gloo"), n)
+        plan = sp._build_plan(src, dst)
+        npd, n_slots = sp.npd, 2 * plan["cap"]
+        send_g, recv_g = sp.groupings(plan)
+        rng = np.random.default_rng(5)
+        deg = np.bincount(src, minlength=2 * npd)[:npd].astype(np.float32)
+        inv = np.where(deg > 0, 1.0 / np.maximum(deg, 1.0), 0.0).astype(np.float32)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        shapes = {}
+        # The receive sum is unweighted: its received slots are products.
+        for what, g, r, i in (
+                ("send", send_g, rng.random(npd).astype(np.float32) / n, inv),
+                ("receive", recv_g, rng.random(n_slots).astype(np.float32) / n, None)):
+            weighted = i is not None
+            r, i = torch.from_numpy(r).to(dev), torch.from_numpy(i).to(dev) if weighted else None
+            rows_n, n_src, edges = g.schedule.shape[0], r.shape[0], g.src_by_dst.shape[0]
+            err = 0.0
+            for g_ in (g, Grouping(*(t.to(torch.int64) for t in g[:3]), g.warp_rows)):
+                got, want = gather_add(zero, *g_, r, i), csr_walk_reference(zero, *g_, r, i)
+                if on_card:
+                    torch.cuda.synchronize()
+                err = max(err, float((got - want).abs().max()) if rows_n else 0.0)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"gather-add, {what} shape ({g_.offsets.dtype}): "
+                                         f"differs from the CSR walk, max abs err {err}")
+            row = {"rows": rows_n, "sources": n_src, "edges": edges, "warp_rows": g.warp_rows,
+                   "weighted": weighted, "max_abs_err": err}
+            if on_card:
+                s_t = g.src_by_dst.long()
+                d_t = torch.repeat_interleave(g.schedule.long(),
+                                              (g.offsets[1:] - g.offsets[:-1]).long())
+
+                def kernel(g=g, r=r, i=i):
+                    return gather_add(zero, *g, r, i)
+
+                def library(r=r, i=i, s_t=s_t, d_t=d_t, rows_n=rows_n):
+                    c = r[s_t] * i[s_t] if i is not None else r[s_t]
+                    return zero.expand(rows_n).clone().index_add_(0, d_t, c)
+
+                k_ms = cuda_ms(torch, kernel)
+                p_ms = cuda_ms(torch, lambda: csr_walk_reference(zero, *g, r, i), reps=3,
+                               warmup=1)
+                l_ms = cuda_ms(torch, library)
+                k_ops, k_dev, k_own = call_profile(torch, kernel, "gather_add_kernel")
+                longest = int((g.offsets[1:] - g.offsets[:-1]).max()) if rows_n else 0
+                b, by = bound_ms(
+                    roofline.pagerank_gather_min_bytes(rows_n, edges, 4, n_src, weighted),
+                    roofline.pagerank_gather_min_ops(edges, weighted))
+                clock = sm_clock_mhz(torch, kernel)
+                chain = roofline.pagerank_chain_min_ms(longest, clock)
+                row.update({"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            "device_ops_per_call": k_ops, "device_ms": k_dev,
+                            "kernel_device_ms": k_own, "bound_ms": b, "bound_by": by,
+                            "chain_bound_ms": chain, "longest_row": longest,
+                            "sm_clock_mhz": clock})
+                if k_ops != 1:
+                    raise AssertionError(f"a gather-add call is {k_ops:g} device ops, not 1")
+                log(f"  {what}: {rows_n} rows over {n_src} sources, {edges} edges, "
+                    f"{g.warp_rows} warp rows: kernel {k_ms:.4f} ms, own {k_own:.4f} ms; "
+                    f"plain {p_ms:.4f} ms; index_add_ {l_ms:.4f} ms; bounds: bytes {b:.6f} ms "
+                    f"({by}), chain {chain:.6f} ms ({longest} adds at {clock:g} MHz); "
+                    f"card {env.smi}")
+            else:
+                log(f"  {what}: {rows_n} rows over {n_src} sources, {edges} edges: == CSR walk")
+            shapes[what] = row
+        pr["gather_add_world2"] = shapes
+    report["pagerank"] = pr
+
+    # ---- 2. index --mesh
+    want = getattr(env, "postings_want", None)
+    if want is None:
+        want = render_postings(oracle_docs(env.lines, env.BL, 128, 20, 32)[0])
+    rounds = lambda w: -(-len(env.lines) // (w * env.BL))  # noqa: E731
+    argv = ["index", env.corpus_file, "--lines-per-doc", str(env.BL), "--mesh"]
+    worlds = ("a world of 1 in process and of 2 processes" if cards == 1
+              else f"--mesh alone, a world of {cards}")
+    with phase(f"the mesh apps: index --mesh --lines-per-doc {env.BL}, {worlds}"):
+        # apps_phase's run of the single-device CLI, else one here.
+        out, single_s = getattr(env, "index_single", (None, None))
+        if out is None:
+            t0 = time.perf_counter()
+            out = env.run_cli("mesh_apps_index_single", argv[:-1] + env.cli_extra)
+            single_s = time.perf_counter() - t0
+            check("mesh_apps_index_single", env.by_path["mesh_apps_index_single"],
+                  {"tokenize": rounds(1)})
+        idx = {"single_device_cli_s": single_s}
+        if out != want:
+            raise AssertionError("the single-device index differs from the oracle")
+        log(f"  the single-device index CLI: {idx['single_device_cli_s']:.3f} s in process")
+        for w in (cards, 2) if cards == 1 else (cards,):
+            name = f"mesh_index_w{w}"
+            t0 = time.perf_counter()
+            if w == cards:
+                out = env.run_cli(name, argv + env.cli_extra)
+                got, ranks_counted = env.by_path[name], 1
+            else:
+                out, got, _ = world(name, w, argv + env.cli_extra)
+                ranks_counted = w
+            wall = time.perf_counter() - t0
+            check(name, got, {"tokenize": rounds(w) * ranks_counted})
+            if out != want:
+                raise AssertionError(f"{name}: stdout differs from the oracle")
+            idx[f"w{w}"] = {"wall_s": wall, "rounds": rounds(w), "launches": got}
+            log(f"  world of {w}: stdout == oracle == the single-device index ({len(out)} "
+                f"bytes), {rounds(w)} rounds, {wall:.3f} s; launches {got}")
+        report["index"] = idx
+
+    # ---- 3. the compiled mesh plan
+    with phase("the mesh apps: compile_plan(wordcount_plan(), cfg, mesh=True) in process, "
+               "bitonic and hasht"):
+        plans = {}
+        for mode in ("bitonic", "hasht"):
+            name = f"mesh_plan_{mode}"
+            cfg = dataclasses.replace(env.cfg, sort_mode=mode)
+            t0 = time.perf_counter()
+            try:
+                with _mesh_recorder() as rec:
+                    res, got = counted(lambda: compile_plan(wordcount_plan(), cfg, mesh=True,
+                                                            device=dev).run(env.rows))
+            finally:
+                mesh_mod.shutdown()
+            wall = time.perf_counter() - t0
+            (r,) = rec
+            r1 = rounds(1)
+            if mode == "bitonic":
+                want_counts = {"tokenize": r1, "bitonic_sort": 2 * r1 + r["drain_rounds"]}
+            elif on_card:  # rewritten to fused: kernel C per round
+                want_counts = {"fused_fold": r1, "tokenize": r["fused_refolds"]}
+            else:  # a CPU rank demotes fused to hasht: the map, no sort
+                want_counts = {"tokenize": r1}
+            check(name, got, want_counts)
+            if res.output != env.want:
+                raise AssertionError(f"{name}: the plan's output differs from the CLI's")
+            plans[mode] = {"wall_s": wall, "launches": got, **r}
+            log(f"  {mode}: output == the CLI's, {r1} rounds, drains {r['drain_rounds']}, "
+                f"fused_kernel {r['fused_kernel']}, {wall:.3f} s; launches {got}")
+        report["plan"] = plans
+
+    # ---- 4. the sample sort
+    n_rows = getattr(env, "sort_rows", SORT_ROWS)
+    tokens = []
+    for line in env.lines:
+        tokens.extend(t for t in _SPLIT.split(line) if t)
+        if len(tokens) >= n_rows:
+            break
+    rows = bytes_ops.strings_to_rows(tokens[:n_rows], 32)
+    if rows.shape[0] != n_rows:
+        raise AssertionError(f"the corpus has {len(tokens)} tokens, fewer than {n_rows}")
+    # Half of the list one word: every rank's share of it lands in one bin.
+    dups = bytes_ops.strings_to_rows([b"the"] * (n_rows // 8) + tokens[:n_rows // 8], 32)
+    np.save(os.path.join(work, "rows.npy"), rows)
+    np.save(os.path.join(work, "dups.npy"), dups)
+    cfg32 = EngineConfig(key_width=32)
+    with phase(f"the mesh apps: DistributedSort.sort_rows over {rows.shape[0]} token rows and "
+               f"sort_strings over {dups.shape[0]} duplicate-heavy strings, worlds of 1 and 2"):
+        srt = {}
+        t0 = time.perf_counter()
+        try:
+            out, got = counted(lambda: _sort_checks(
+                mesh_mod.make_mesh(device=dev), rows, bytes_ops.rows_to_strings(dups), cfg32,
+                DistributedSort, sort_strings, bytes_ops, skew=0.5))
+        finally:
+            mesh_mod.shutdown()
+        srt["w1"] = {"wall_s": time.perf_counter() - t0, "launches": got,
+                     **_check_sort("sort_w1", out, rows, dups)}
+        check("mesh_sort_w1", got, {})
+        t0 = time.perf_counter()
+        _, got, _ = world("mesh_sort_w2", 2, [work, "cuda" if on_card else "cpu"],
+                          module="chip_smoke:sort_world")
+        with np.load(os.path.join(work, "sorted.npz")) as z:
+            out = {k: z[k] for k in z.files}
+        srt["w2"] = {"wall_s": time.perf_counter() - t0, "launches": got,
+                     **_check_sort("sort_w2", out, rows, dups)}
+        check("mesh_sort_w2", got, {})
+        for w in ("w1", "w2"):
+            log(f"  world of {w[1]}: {rows.shape[0]} rows sorted == numpy's lexsort, each run's "
+                f"values the same multiset; sort_strings: overflows by attempt "
+                f"{srt[w]['attempt_overflows']} (one retry), == numpy's order; "
+                f"{srt[w]['wall_s']:.3f} s")
+        report["sort"] = srt
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  the mesh apps' phase: {report['phase_s']:.1f} s")
     return report
 
 
@@ -3176,6 +3650,7 @@ def main() -> int:
     plan_phase(env)
     app_mbs = apps_phase(env)
     pagerank_report = pagerank_phase(env)
+    mesh_apps_report = mesh_apps_phase(env)
     trace_phase(env)
     attribution = attribution_phase(env)
     debug_faults_phase(env)
@@ -3496,7 +3971,8 @@ def main() -> int:
          "replaces": "index_add_ (apps/pagerank.py)",
          "launches": by_path["cli_pagerank"]["pagerank"],
          "launches_by_path": {p: c.get("pagerank", 0) for p, c in by_path.items()},
-         **pagerank_report["kernel"]},
+         **pagerank_report["kernel"],
+         "mesh_slots": mesh_apps_report["pagerank"]["gather_add_world2"]},
     ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs,
        "run_stream_busy_share": stream_busy, "apps_mb_s": app_mbs,
        "pagerank": pagerank_report, "zipf_run_stream": zipf_report,
@@ -3506,7 +3982,7 @@ def main() -> int:
                                           "sort_passes")}
                     for k, r in roof.items()},
        "attribution": attribution, "distributor": dist_report, "serve": serve_report,
-       "pool": pool_report, "mesh": mesh_report}
+       "pool": pool_report, "mesh": mesh_report, "mesh_apps": mesh_apps_report}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Inverted index: word -> sorted unique doc ids.
 
-Port of the single-device part of ``locust_tpu/apps/inverted_index.py``
-(``DistributedInvertedIndex`` and ``build_inverted_index_mesh`` wait for
-the port's mesh tier).  Emits are (word, doc_id) and the reduce is
+Port of ``locust_tpu/apps/inverted_index.py``; the mesh variant
+(``DistributedInvertedIndex``, ``build_inverted_index_mesh``) runs one
+rank per process on ``locust_tpu_torch.parallel``.  Emits are (word,
+doc_id) and the reduce is
 "collect the distinct values per key", a variable-length output over
 fixed-slot emits:
 
@@ -168,3 +169,251 @@ def build_inverted_index(
     if pos != len(live_vals):
         raise RuntimeError("postings/count bookkeeping diverged")
     return out
+
+
+class DistributedInvertedIndex:
+    """Mesh-parallel inverted index, one rank per process.
+
+    The collective recipe of ``parallel/shuffle.DistributedMapReduce`` —
+    hash-partition, equal bins, one all-to-all per round, carried
+    per-rank state, lossless backlog retry — but the shuffled unit is the
+    (word, doc) PAIR and the per-shard merge is a dedup, not a segment
+    reduce.  Partitioning hashes the WORD only, so every posting of a
+    word lands on one shard and host assembly is a plain per-shard union.
+    Each round a rank tokenizes its lines (kernel A when
+    ``cfg.use_pallas``), dedupes its pairs locally, partitions them with
+    the backlog into bins, exchanges the bins and merges what it received
+    into its pair table; the backlog drains in further all-to-all rounds,
+    its sum over the ranks read once a round on the host, so every rank
+    takes the same number of trips (the JAX step's ``while_loop``).
+    Integers only cross ranks, so every sum is exact in any order.
+    """
+
+    def __init__(self, mesh, cfg: EngineConfig, axis_name: str | None = None,
+                 skew_factor: float = 2.0, pairs_capacity: int | None = None):
+        from locust_tpu_torch.parallel.mesh import DATA_AXIS
+        from locust_tpu_torch.parallel.shuffle import sized_bins
+
+        axis = axis_name or DATA_AXIS
+        self.mesh = mesh
+        self.cfg = cfg
+        self.axis = axis
+        self.n_dev = mesh.shape[axis]
+        self.bin_capacity = sized_bins(cfg.emits_per_block, self.n_dev, skew_factor)
+        self.leftover_capacity = cfg.emits_per_block
+        # Distinct (word, doc) pairs carried per shard; exceeding it raises.
+        # Pairs accumulate across ALL rounds, so the floor is larger than
+        # one round's emits.
+        self.pairs_capacity = pairs_capacity or default_pairs_capacity(cfg, mult=4)
+        self.max_drain_rounds = 2 + -(-cfg.emits_per_block // self.bin_capacity)
+
+    @property
+    def lines_per_round(self) -> int:
+        return self.n_dev * self.cfg.block_lines
+
+    def _shuffle_round(self, local: KVBatch, acc: KVBatch, leftover: KVBatch):
+        """One partition + all-to-all + dedup-merge; feed and drain share
+        it.  Returns ``(acc, leftover, shuffle overflow, distinct pairs,
+        this rank's backlog)``, the counts int32 scalars on the device."""
+        from locust_tpu_torch.parallel.shuffle import exchange_bins, partition_to_bins
+
+        s_lanes, s_vals, s_valid, shuf_ovf, new_left = partition_to_bins(
+            KVBatch.concat(local, leftover), self.n_dev, self.bin_capacity,
+            leftover_capacity=self.leftover_capacity,
+        )
+        received = exchange_bins(self.mesh, self.axis, s_lanes, s_vals, s_valid)
+        merged, n_pairs = _dedup_sorted_pairs(_sort_pairs(KVBatch.concat(acc, received)))
+        cap = self.pairs_capacity
+        new_acc = KVBatch(merged.key_lanes[:cap], merged.values[:cap], merged.valid[:cap])
+        return new_acc, new_left, shuf_ovf, n_pairs, new_left.valid.sum(dtype=torch.int32)
+
+    def _step(self, lines: torch.Tensor, doc_ids: torch.Tensor, acc: KVBatch,
+              leftover: KVBatch):
+        """Feed + drain of one round on this rank: ``(acc, leftover,
+        stats)``, stats ``[emit overflow, shuffle overflow, worst shard's
+        distinct pairs, backlog, drains]`` (int32 on the device, the same
+        on every rank)."""
+        cfg, mesh, axis = self.cfg, self.mesh, self.axis
+        dev = lines.device
+        res = tokenize_lines(lines, cfg)
+        flat_keys = res.keys.reshape(-1, cfg.key_width)
+        flat_valid = res.valid.reshape(-1)
+        values = doc_ids.to(torch.int32).repeat_interleave(cfg.emits_per_line)
+        batch = KVBatch.from_bytes(flat_keys, values, flat_valid)
+        # Local pre-dedup: repeated (word, doc) pairs within the shard
+        # collapse before touching the network (the combiner analog).
+        local, _ = _dedup_sorted_pairs(_sort_pairs(batch))
+        acc, leftover, shuf_ovf, n_pairs, backlog = self._shuffle_round(local, acc, leftover)
+        backlog = mesh.all_reduce(backlog, axis)
+        drains = 0
+        zero_local = KVBatch.empty(local.size, cfg.key_lanes, dev)
+        while int(backlog) > 0 and drains < self.max_drain_rounds:
+            acc, leftover, so, n_pairs, backlog = self._shuffle_round(zero_local, acc, leftover)
+            shuf_ovf = shuf_ovf + so
+            backlog = mesh.all_reduce(backlog, axis)
+            drains += 1
+        summed = mesh.all_reduce(torch.stack([res.overflow.to(torch.int32), shuf_ovf]), axis)
+        worst = mesh.all_reduce(n_pairs.reshape(1), axis, op="max")
+        stats = torch.cat([summed, worst, backlog.reshape(1),
+                           torch.tensor([drains], dtype=torch.int32, device=dev)])
+        return acc, leftover, stats
+
+    def run(self, lines: list[bytes] | np.ndarray, doc_ids: np.ndarray,
+            stats_sync_every: int = 16, checkpoint_dir: str | None = None,
+            checkpoint_every: int = 1) -> dict[bytes, list[int]]:
+        """The whole corpus (host rows or lines, the same on every rank)
+        -> {word: sorted unique doc ids}, on every rank.  With
+        ``checkpoint_dir``, the gathered pair table, backlog and counters
+        land in one npz per process every ``checkpoint_every`` rounds, and
+        a re-run of the same corpus resumes after the last one."""
+        cfg = self.cfg
+        if not isinstance(lines, np.ndarray):
+            rows = bytes_ops.strings_to_rows(list(lines), cfg.line_width)
+        else:
+            rows = lines
+        ids = np.asarray(doc_ids, np.int32)
+        if rows.shape[0] != ids.shape[0]:
+            raise ValueError(f"{rows.shape[0]} lines but {ids.shape[0]} doc ids")
+
+        lpr = self.lines_per_round
+        nrounds = max(1, -(-rows.shape[0] // lpr))
+        chunks = ((rows[r * lpr:(r + 1) * lpr], ids[r * lpr:(r + 1) * lpr])
+                  for r in range(nrounds))
+        fingerprint = None
+        if checkpoint_dir is not None:
+            from locust_tpu_torch.io.serde import fingerprint_corpus
+
+            # Doc ids are part of the corpus identity: the same lines with
+            # different sharding produce a different index.
+            fingerprint = fingerprint_corpus(
+                rows, doc_ids=fingerprint_corpus(ids), **self._identity())
+        return self._run_rounds(chunks, stats_sync_every, fingerprint=fingerprint,
+                                checkpoint_dir=checkpoint_dir,
+                                checkpoint_every=checkpoint_every)
+
+    def _identity(self) -> dict:
+        """Engine, pipeline and mesh identity bound into checkpoint
+        fingerprints; equal to the JAX index's for the same configuration."""
+        return dict(
+            engine="inverted_index",
+            cfg=repr(self.cfg),
+            mesh=f"{self.n_dev}x{self.axis}",
+            bin_capacity=self.bin_capacity,
+            pairs_capacity=self.pairs_capacity,
+        )
+
+    def run_stream(self, blocks, stats_sync_every: int = 16, fingerprint: str | None = None,
+                   checkpoint_dir: str | None = None,
+                   checkpoint_every: int = 1) -> dict[bytes, list[int]]:
+        """Bounded-memory variant: ``blocks`` yields ``(rows [<=
+        lines_per_round, width], doc_ids [same length])`` chunk pairs.
+        Only one chunk plus the sharded pair table are ever resident.
+        Pass a corpus ``fingerprint`` to checkpoint and resume."""
+        from locust_tpu_torch.io.loader import prefetch_blocks
+        from locust_tpu_torch.parallel.shuffle import stream_checkpoint_fingerprint
+
+        fingerprint = stream_checkpoint_fingerprint(fingerprint, checkpoint_dir,
+                                                    self._identity())
+        return self._run_rounds(prefetch_blocks(blocks), stats_sync_every,
+                                fingerprint=fingerprint, checkpoint_dir=checkpoint_dir,
+                                checkpoint_every=checkpoint_every)
+
+    def _run_rounds(self, chunk_iter, stats_sync_every: int, fingerprint: str | None = None,
+                    checkpoint_dir: str | None = None, checkpoint_every: int = 1):
+        from locust_tpu_torch.parallel.mesh import scatter_host_array, shard_rows
+        from locust_tpu_torch.parallel.shuffle import (
+            RoundStats,
+            ShardedCheckpoint,
+            drive_checkpointed_rounds,
+            gather_batch_host,
+            normalize_round_chunk,
+        )
+
+        cfg, mesh = self.cfg, self.mesh
+        lpr, width = self.lines_per_round, cfg.line_width
+        acc = KVBatch.empty(self.pairs_capacity, cfg.key_lanes, mesh.device)
+        leftover = KVBatch.empty(self.leftover_capacity, cfg.key_lanes, mesh.device)
+        counters = dict(n_pairs=0, shuf_ovf=0, emit_ovf=0)
+        start_round = 0
+
+        ckpt = None
+        if checkpoint_dir is not None:
+            ckpt = ShardedCheckpoint(checkpoint_dir, fingerprint, mesh,
+                                     async_writes=cfg.async_checkpoint)
+            restored = ckpt.load()
+            if restored is not None:
+                start_round, extras, acc, leftover = restored
+                for k in counters:
+                    counters[k] = int(extras[k])
+
+        def snapshot(next_round: int) -> None:
+            ckpt.snapshot(next_round, acc, leftover,
+                          **{k: np.int64(v) for k, v in counters.items()})
+
+        def on_sync(st) -> None:
+            counters["emit_ovf"] += int(st[0])
+            counters["shuf_ovf"] += int(st[1])
+            counters["n_pairs"] = max(counters["n_pairs"], int(st[2]))
+            backlog = int(st[3])
+            if backlog > 0:
+                raise RuntimeError(
+                    f"index backlog failed to drain in {self.max_drain_rounds} rounds "
+                    f"({backlog} pairs remain); raise skew_factor")
+            if counters["shuf_ovf"]:
+                raise RuntimeError(
+                    f"index shuffle lost {counters['shuf_ovf']} pairs; "
+                    "emits exceeded cfg.emits_per_block")
+
+        def merge(a, b):
+            # Overflows and drains add, worst-shard pairs take the maximum,
+            # the backlog the later round's.
+            return torch.stack([a[0] + b[0], a[1] + b[1], torch.maximum(a[2], b[2]), b[3],
+                                a[4] + b[4]])
+
+        round_stats = RoundStats(merge, on_sync, stats_sync_every)
+
+        def fold_round(chunk) -> None:
+            nonlocal acc, leftover
+            rows_chunk, ids_chunk = chunk
+            ids_chunk = np.asarray(ids_chunk, dtype=np.int32)
+            rows_chunk = np.asarray(rows_chunk, dtype=np.uint8)
+            if rows_chunk.shape[0] != ids_chunk.shape[0]:
+                raise ValueError(f"chunk has {rows_chunk.shape[0]} lines but "
+                                 f"{ids_chunk.shape[0]} doc ids")
+            rows_chunk = normalize_round_chunk(rows_chunk, lpr, width)
+            if ids_chunk.shape[0] < lpr:
+                ids_chunk = np.concatenate([ids_chunk, np.zeros(lpr - ids_chunk.shape[0],
+                                                                np.int32)])
+            acc, leftover, stats = self._step(shard_rows(rows_chunk, mesh),
+                                              scatter_host_array(ids_chunk, mesh), acc, leftover)
+            round_stats.push(stats)
+
+        drive_checkpointed_rounds(chunk_iter, fold_round, round_stats, ckpt, snapshot,
+                                  checkpoint_every, start_round)
+        if counters["emit_ovf"]:
+            # Missing postings make a silently-wrong index; say so loudly.
+            logger.warning(
+                "inverted index dropped %d tokens beyond the %d-per-line "
+                "cap; their postings are MISSING — raise emits_per_line",
+                counters["emit_ovf"],
+                cfg.emits_per_line,
+            )
+        if counters["n_pairs"] > self.pairs_capacity:
+            raise ValueError(
+                f"distinct (word, doc) pairs per shard ({counters['n_pairs']}) exceed "
+                f"pairs_capacity ({self.pairs_capacity}); pass a larger one"
+            )
+
+        # Host assembly: shards are disjoint by word (hash partition) and
+        # internally (hash, doc)-sorted and deduped, so a plain grouping
+        # union yields ascending unique doc ids per word.
+        out: dict[bytes, list[int]] = {}
+        for k, v in gather_batch_host(acc, mesh).to_host_pairs():
+            out.setdefault(k, []).append(int(v))
+        return out
+
+
+def build_inverted_index_mesh(lines: list[bytes] | np.ndarray, doc_ids: np.ndarray, mesh,
+                              cfg: EngineConfig | None = None, **kw) -> dict[bytes, list[int]]:
+    """Mesh convenience wrapper: build the index across every rank."""
+    return DistributedInvertedIndex(mesh, cfg or EngineConfig(), **kw).run(lines, doc_ids)

@@ -1,0 +1,184 @@
+"""Distributed sample sort: TeraSort-style global ordering over the mesh.
+
+Port of ``locust_tpu/apps/sample_sort.py`` onto ``torch.distributed``,
+one rank per process (``locust_tpu_torch.parallel``).  A global sort of
+(key, value) records across every rank, by the classic sample-sort
+recipe:
+
+  1. SAMPLE    every rank takes a strided sample of its valid keys; one
+               ``all_gather`` shares all samples; every rank sorts the
+               (small) sample set identically and picks n_dev-1 splitters.
+  2. PARTITION bucket = #splitters <= key (``core/packing.lanes_geq_table``,
+               the lexicographic compare on packed lanes); scatter into
+               equal-capacity bins; one all-to-all, the range shuffle.
+  3. LOCAL SORT each rank sorts what it received by its full key lanes
+               (``ops/process_stage`` "lex" mode: exact byte order).
+
+Rank d then holds range shard d, internally sorted, and every key on rank
+d precedes every key on rank d+1: a globally sorted sequence.  Skewed
+inputs (duplicate-heavy keys) can overflow a range bin; the overflow is
+counted and summed over the ranks (an integer, exact in any order), and
+``sort_strings`` retries with doubled bins.  The sorts are stable torch
+sorts; the JAX package's are not, so rows of equal keys may carry their
+values in another order (the keys, the overflow and the retries are the
+same).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+
+import numpy as np
+import torch
+
+from locust_tpu_torch.config import EngineConfig
+from locust_tpu_torch.core import bytes_ops, packing
+from locust_tpu_torch.core.kv import KVBatch
+from locust_tpu_torch.ops.process_stage import _lexsort, sort_and_compact
+from locust_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, scatter_host_array, shard_rows
+from locust_tpu_torch.parallel.shuffle import (
+    exchange_bins,
+    gather_batch_host,
+    partition_to_bins,
+    sized_bins,
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class DistributedSort:
+    """Globally sort fixed-width byte keys (with int32 payloads) on a mesh."""
+
+    def __init__(self, mesh: Mesh, cfg: EngineConfig, rows_per_device: int,
+                 axis_name: str = DATA_AXIS, sample_per_device: int = 64,
+                 skew_factor: float = 2.0):
+        self.mesh = mesh
+        self.cfg = cfg
+        self.axis = axis_name
+        self.n_dev = mesh.shape[axis_name]
+        self.rows_per_device = rows_per_device
+        self.sample_per_device = sample_per_device
+        self.bin_capacity = sized_bins(rows_per_device, self.n_dev, skew_factor)
+        self.shard_capacity = self.n_dev * self.bin_capacity
+
+    def _splitters(self, lanes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """The ``n_dev - 1`` splitters, the same on every rank.  Valid rows
+        are sampled first (padding would drag the splitters to zero), at
+        a stride over the valid prefix (a rank's contiguous line range is
+        often clustered, so a prefix sample would skew the bins)."""
+        n_dev, s = self.n_dev, self.sample_per_device
+        dev = lanes.device
+        compact_idx = torch.sort((~valid).to(torch.int8), stable=True).indices
+        n_valid = int(valid.sum())
+        i = torch.arange(s, device=dev)
+        stride_idx = i * (n_valid // s) + (i * (n_valid % s)) // s
+        take = compact_idx[stride_idx.clamp(0, lanes.shape[0] - 1)]
+        all_samples = self.mesh.all_gather(lanes[take], self.axis)          # [n_dev*s, L]
+        all_ok = self.mesh.all_gather(valid[take].to(torch.uint8), self.axis) != 0
+        # Invalid samples last, then the n_dev-1 splitters at quantiles of
+        # the valid prefix only.
+        u = packing.to_u32(all_samples)
+        sorted_lanes = all_samples[_lexsort([(~all_ok).to(torch.int64), *u.unbind(dim=1)])]
+        n_valid_samples = int(all_ok.sum())
+        j = torch.arange(1, n_dev, device=dev)
+        idx = (j * n_valid_samples // n_dev).clamp(0, sorted_lanes.shape[0] - 1)
+        return sorted_lanes[idx]
+
+    def _step(self, keys_rows: torch.Tensor, values: torch.Tensor, valid: torch.Tensor):
+        """This rank's body: sample, range shuffle, local sort.  Returns
+        its sorted shard and the overflow summed over the ranks."""
+        kv = KVBatch.from_bytes(keys_rows, values, valid)
+        splitters = self._splitters(kv.key_lanes, valid)
+        bucket = packing.lanes_geq_table(kv.key_lanes, splitters).sum(dim=-1)  # [N] in [0, n)
+        s_lanes, s_vals, s_valid, overflow, _ = partition_to_bins(
+            kv, self.n_dev, self.bin_capacity, bucket=bucket)
+        received = exchange_bins(self.mesh, self.axis, s_lanes, s_vals, s_valid)
+        return sort_and_compact(received, mode="lex"), self.mesh.all_reduce(overflow, self.axis)
+
+    def sort_rows(self, keys: np.ndarray, values: np.ndarray | None = None) -> "SortResult":
+        """Globally sort host ``[n, key_width]`` byte rows (+ optional
+        values), the same on every rank.  n must be <= n_dev *
+        rows_per_device; shorter inputs are padded with invalid rows."""
+        total = self.n_dev * self.rows_per_device
+        n = keys.shape[0]
+        if n > total:
+            raise ValueError(f"{n} rows > capacity {total}; raise rows_per_device")
+        if values is None:
+            values = np.arange(n, dtype=np.int32)  # original index payload
+        pk = np.zeros((total, self.cfg.key_width), np.uint8)
+        pk[:n] = keys[:, : self.cfg.key_width]
+        pv = np.zeros((total,), np.int32)
+        pv[:n] = values
+        pvalid = np.zeros((total,), bool)
+        pvalid[:n] = True
+        table, overflow = self._step(shard_rows(pk, self.mesh), scatter_host_array(pv, self.mesh),
+                                     scatter_host_array(pvalid, self.mesh))
+        return SortResult(table, int(overflow), self.shard_capacity, self.mesh, self.axis)
+
+
+class SortResult:
+    """A sort's result: this rank's sorted range shard (``table``) and the
+    overflow summed over the ranks."""
+
+    def __init__(self, table: KVBatch, overflow: int, shard_capacity: int, mesh: Mesh,
+                 axis: str = DATA_AXIS):
+        self.table = table
+        self.overflow = overflow
+        self.shard_capacity = shard_capacity
+        self.mesh = mesh
+        self.axis = axis
+
+    def to_host_sorted(self) -> list[tuple[bytes, int]]:
+        """Every rank's sorted valid prefix, gathered and concatenated in
+        rank order: the global order, on every rank.
+
+        Warns loudly if rows were dropped (overflowed range bins): the
+        result is then NOT a permutation of the input; re-sort with a
+        higher skew_factor (``sort_strings`` does this itself)."""
+        if self.overflow:
+            logging.getLogger("locust_tpu_torch").warning(
+                "sample sort dropped %d rows (range-bin overflow); "
+                "output is truncated — raise skew_factor",
+                self.overflow,
+            )
+        full = gather_batch_host(self.table, self.mesh, self.axis)
+        n_shards = full.size // self.shard_capacity
+        out: list[tuple[bytes, int]] = []
+        for d in range(n_shards):
+            lo, hi = d * self.shard_capacity, (d + 1) * self.shard_capacity
+            out.extend(KVBatch(full.key_lanes[lo:hi], full.values[lo:hi],
+                               full.valid[lo:hi]).to_host_pairs())
+        return out
+
+
+def sort_strings(strings: list[bytes], mesh: Mesh, cfg: EngineConfig | None = None,
+                 max_retries: int | None = None, **kw) -> list[bytes]:
+    """Convenience: globally sort byte strings, truncated to key_width.
+
+    Lossless: if a skewed or duplicate-heavy distribution overflows a
+    range bin, the sort is retried with DOUBLED skew_factor (bigger
+    bins).  The default budget doubles until ``skew_factor >= n_dev``,
+    where one bin holds a whole rank's shard and overflow is impossible,
+    so the default path cannot fail on any input that fits the mesh.  An
+    explicit ``max_retries`` caps the doublings instead, raising
+    ``ValueError`` rather than returning a silently truncated list."""
+    cfg = cfg or EngineConfig()
+    n_dev = mesh.shape[DATA_AXIS]
+    rows_per_device = _round_up(max(1, -(-len(strings) // n_dev)), 8)
+    rows = bytes_ops.strings_to_rows(strings, cfg.key_width)
+    skew = kw.pop("skew_factor", 2.0)
+    if max_retries is None:
+        max_retries = max(1, math.ceil(math.log2(max(2.0, n_dev / skew))) + 1)
+    for _ in range(max_retries + 1):
+        ds = DistributedSort(mesh, cfg, rows_per_device, skew_factor=skew, **kw)
+        res = ds.sort_rows(rows)
+        if res.overflow == 0:
+            return [k for k, _ in res.to_host_sorted()]
+        skew *= 2.0
+    raise ValueError(
+        f"sample sort still dropped {res.overflow} rows at "
+        f"skew_factor={skew / 2}; input too skewed for this mesh"
+    )

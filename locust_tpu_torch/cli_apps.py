@@ -18,10 +18,13 @@ Every subcommand runs on CUDA unless ``--backend cpu``, takes
 ``--trace-out FILE`` (a Chrome-trace timeline of the run) and
 ``--sort-mode`` (default ``bitonic``: the bitonic kernel; pagerank's
 dense pipeline has no sort and accepts it for parity).  index and tfidf
-map through the tokenizer kernel.  ``--mesh`` (the JAX package's sharded
-PageRank and inverted index) exits with an error until the mesh apps
-land (ROADMAP queue 1 item 9c); WordCount's ``--mesh`` and ``--slices``
-are ported (cli.py).
+map through the tokenizer kernel.  ``pagerank --mesh`` runs
+``ShardedPageRank`` and ``index --mesh`` the distributed inverted index
+(``DistributedInvertedIndex``), one rank per process as WordCount's
+``--mesh`` does (cli.py): ``--mesh`` alone is one rank per visible card
+(a world of one in this process on the CPU or a one-card host), and
+``--coordinator/--num-processes/--process-id`` join a given world; only
+process 0 prints.  tfidf has no mesh variant.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def build_parser(cmd: str) -> argparse.ArgumentParser:
         p.add_argument("--num-nodes", type=int, default=None,
                        help="default: max node id in the file + 1")
         p.add_argument("--mesh", action="store_true",
-                       help="sharded PageRank (a mesh app, not ported yet: exits 2)")
+                       help="ShardedPageRank over the mesh, one rank per process "
+                            "(rank state sharded O(nodes/n_dev))")
         p.add_argument("--top", type=int, default=None,
                        help="print only the N highest-ranked nodes")
     else:
@@ -77,7 +81,8 @@ def build_parser(cmd: str) -> argparse.ArgumentParser:
                        help="doc id of line i = i // K (default 1: "
                             "one document per line)")
         p.add_argument("--mesh", action="store_true",
-                       help="build across devices (a mesh app, not ported yet: exits 2)")
+                       help="build across the mesh, one rank per process "
+                            "(DistributedInvertedIndex shuffle)")
         p.add_argument("--limit", type=int, default=None,
                        help="print only the first N table rows")
         p.add_argument("--block-lines", type=int, default=4096)
@@ -85,6 +90,14 @@ def build_parser(cmd: str) -> argparse.ArgumentParser:
         p.add_argument("--key-width", type=int, default=32)
         p.add_argument("--emits-per-line", type=int, default=20)
     _add_backend_flag(p)
+    p.add_argument("--coordinator", default=None,
+                   help="with --mesh, a world of processes: process 0's address "
+                        "host:port; every process runs the same command with its own "
+                        "--process-id, and only process 0 prints")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="with --coordinator: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="with --coordinator: this process's index")
     return p
 
 
@@ -117,8 +130,10 @@ def run_pagerank(args, device) -> int:
         return 1
     ranks = compile_plan(
         pagerank_plan(num_iters=args.num_iters, damping=args.damping),
-        device=device,
+        mesh=args.mesh, device=device,
     ).run((src, dst), num_nodes=n, render=False).value
+    if not _prints():
+        return 0
     order = (
         np.argsort(-ranks, kind="stable")[: args.top]
         if args.top is not None
@@ -149,6 +164,14 @@ def _load_docs(args):
     return cfg, rows
 
 
+def _prints() -> bool:
+    """Whether this process prints: always off the mesh, process 0 of a
+    mesh world (every rank holds the result)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _print_rendered(op: str, value, limit) -> int:
     """Print through the plan sink's ONE row renderer
     (plan.compile.iter_rendered)."""
@@ -169,8 +192,10 @@ def run_index(args, device) -> int:
 
     cfg, rows = _load_docs(args)
     index = compile_plan(
-        index_plan(args.lines_per_doc), cfg, device=device
+        index_plan(args.lines_per_doc), cfg, mesh=args.mesh, device=device
     ).run(rows, render=False).value
+    if not _prints():
+        return 0
     return _print_rendered("postings", index, args.limit)
 
 
@@ -193,11 +218,16 @@ def main(cmd: str, argv) -> int:
               "table is device-bounded; use index --mesh for the "
               "distributed path)", file=sys.stderr)
         return 2
-    if args.mesh:
-        print(f"{PROG}: error: --mesh needs the mesh tier's apps (sharded "
-              f"{'PageRank' if cmd == 'pagerank' else 'inverted index'} "
-              "on torch.distributed), which are not ported yet", file=sys.stderr)
+    pod = (args.coordinator, args.num_processes, args.process_id)
+    if any(v is not None for v in pod) and not args.mesh:
+        print(f"{PROG}: error: --coordinator/--num-processes/--process-id "
+              "require --mesh", file=sys.stderr)
         return 2
+    if any(v is None for v in pod) and any(v is not None for v in pod):
+        print(f"{PROG}: error: --coordinator, --num-processes and --process-id "
+              "go together", file=sys.stderr)
+        return 2
+    args.argv = [cmd, *argv]  # the mesh's other local ranks run the same command
     if cmd != "pagerank" and args.lines_per_doc < 1:
         print(f"{PROG}: error: --lines-per-doc must be >= 1", file=sys.stderr)
         return 2
@@ -218,17 +248,48 @@ def main(cmd: str, argv) -> int:
     if args.trace_out:
         obs.enable(process="cli")
     try:
-        if cmd == "pagerank":
-            return run_pagerank(args, device)
-        if cmd == "index":
-            return run_index(args, device)
-        return run_tfidf(args, device)
+        if args.mesh:
+            return _run_mesh(cmd, args, device)
+        return _run_app(cmd, args, device)
     except (OSError, ValueError) as e:
         print(f"{PROG}: error: {e}", file=sys.stderr)
         return 1
     finally:
         if args.trace_out:
             export_trace(args.trace_out)
+
+
+def _run_app(cmd: str, args, device) -> int:
+    if cmd == "pagerank":
+        return run_pagerank(args, device)
+    if cmd == "index":
+        return run_index(args, device)
+    return run_tfidf(args, device)
+
+
+def _run_mesh(cmd: str, args, device) -> int:
+    """The app over the mesh world: joined through the WordCount CLI's
+    ``_join_world`` (``--mesh`` alone starts one more rank per further
+    visible card), left again at the end if this command formed it; the
+    local ranks it started are waited for, and their failure is this
+    one's."""
+    import torch.distributed as dist
+
+    from locust_tpu_torch.cli import _join_world
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    own_world = not dist.is_initialized()
+    children = _join_world(args, device)
+    try:
+        rc = _run_app(cmd, args, device)
+    finally:
+        if own_world:
+            mesh_mod.shutdown()
+        failed = [c.args for c in children if c.wait() != 0]
+    if failed:
+        print(f"{PROG}: error: mesh ranks failed: {failed}", file=sys.stderr)
+        return 1
+    return rc
 
 
 def export_trace(path: str) -> None:

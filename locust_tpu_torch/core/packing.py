@@ -1,8 +1,9 @@
 """Key packing and key hashing on 32-bit lanes held as int32 bit patterns.
 
-Port of ``locust_tpu/core/packing.py:25-131``.  A ``key_width``-byte key
-packs into ``key_width / 4`` big-endian 32-bit lanes, so lane-tuple order
-is byte order.  The JAX package keeps the lanes as uint32; torch on the
+Port of ``locust_tpu/core/packing.py:25-131`` and of its
+``lanes_geq_table`` (:78-87).  A ``key_width``-byte key packs into
+``key_width / 4`` big-endian 32-bit lanes, so lane-tuple order is byte
+order.  The JAX package keeps the lanes as uint32; torch on the
 CPU has no uint32 shifts, adds, sums or compares, so the port carries the
 same 32 bits in int32 tensors and does the unsigned arithmetic in int64,
 masked to 32 bits after every step.  ``hash_pair`` is bit-identical to
@@ -94,3 +95,15 @@ def fold_hash(lanes: torch.Tensor) -> torch.Tensor:
     from both ``hash_pair`` streams (the JAX ``fold_hash``); returns the
     unsigned 32-bit value held in int64."""
     return _salted_fold(to_u32(lanes), 0x85EBCA77, None)
+
+
+def lanes_geq_table(keys: torch.Tensor, splitters: torch.Tensor) -> torch.Tensor:
+    """Pairwise lexicographic ``keys[n] >= splitters[s]`` over big-endian
+    lanes (int32 bit patterns, compared unsigned) -> bool ``[N, S]``: the
+    range partition's comparator (the sample sort).  The first differing
+    lane decides; equal keys are ``>=``."""
+    a, b = torch.broadcast_tensors(to_u32(keys)[:, None, :], to_u32(splitters)[None, :, :])
+    neq = a != b
+    first = neq.to(torch.int8).argmax(dim=-1, keepdim=True)
+    a_at, b_at = a.gather(-1, first)[..., 0], b.gather(-1, first)[..., 0]
+    return torch.where(neq.any(dim=-1), a_at > b_at, True)

@@ -29,10 +29,19 @@
 // node schedule[i]'s in-edges, ``src_by_dst[offsets[i] .. offsets[i+1]]``,
 // in edge order (a stable sort); its first ``warp_rows`` rows are long.
 // Indices are int32 where the graph fits (one template, instantiated for
-// int32 and int64).
+// int32 and int64, each weighted and unweighted).
+//
+// Sources and rows may be two index spaces: ``ranks`` and ``inv_deg`` are
+// indexed by source (``num_src`` of them), ``total`` by row node
+// (``num_nodes``).  One device's PageRank has one space; the sharded
+// PageRank's two sums have two (a rank's local nodes into its send slots,
+// then the received slots into its local nodes).  A null ``inv_deg`` makes
+// the sum unweighted, each contribution ranks[src[e]] itself: the
+// sharded receive sum, whose received slots are already products.
 //
 // One cooperative launch of persistent blocks, two phases:
-//   1. every node's contribution ranks[v] * inv_deg[v] into ``contrib``,
+//   1. every source's contribution ranks[v] * inv_deg[v] into ``contrib``
+//      (unweighted: none, the thread rows gather ``ranks`` itself),
 //      and every edge of the warp rows' its own product into ``prod``
 //      (the warp rows' edges are the first offsets[warp_rows] of the
 //      layout, so the grid shares the long rows' gathers evenly); then a
@@ -189,12 +198,13 @@ __device__ void thread_row(long long i, float acc, const I* __restrict__ offsets
   total[__ldg(schedule + i)] = acc;
 }
 
-template <typename I>
+template <typename I, bool kWeighted>
 __global__ void __launch_bounds__(kThreads) gather_add_kernel(
     const float* __restrict__ init, const I* __restrict__ offsets,
     const I* __restrict__ src_by_dst, const I* __restrict__ schedule,
     const float* __restrict__ ranks, const float* __restrict__ inv_deg, float* contrib,
-    float* prod, float* __restrict__ total, long long num_nodes, long long warp_rows) {
+    float* prod, float* __restrict__ total, long long num_nodes, long long num_src,
+    long long warp_rows) {
   __shared__ __align__(16) float stage[kWarps][kSpan];
   cg::grid_group grid = cg::this_grid();
   const long long threads = (long long)gridDim.x * kThreads;
@@ -203,11 +213,14 @@ __global__ void __launch_bounds__(kThreads) gather_add_kernel(
 #pragma unroll 4
   for (long long e = t; e < warp_edges; e += threads) {
     const I s = __ldg(src_by_dst + e);
-    prod[e] = __fmul_rn(__ldg(ranks + s), __ldg(inv_deg + s));
+    prod[e] = kWeighted ? __fmul_rn(__ldg(ranks + s), __ldg(inv_deg + s)) : __ldg(ranks + s);
   }
+  if constexpr (kWeighted) {
 #pragma unroll 4
-  for (long long v = t; v < num_nodes; v += threads)
-    contrib[v] = __fmul_rn(__ldg(ranks + v), __ldg(inv_deg + v));
+    for (long long v = t; v < num_src; v += threads)
+      contrib[v] = __fmul_rn(__ldg(ranks + v), __ldg(inv_deg + v));
+  }
+  const float* gathered = kWeighted ? contrib : ranks;
   grid.sync();  // every product written; plain loads read them from here on
   // Two pools of warps.  The first takes the warp rows, sized so that
   // its warps' rows, each counted with a start of kRowStart edges, add up
@@ -239,13 +252,13 @@ __global__ void __launch_bounds__(kThreads) gather_add_kernel(
   if (w >= first) {
     const long long pool_threads = threads - 32 * first;
     for (long long i = warp_rows + t - 32 * first; i < num_nodes; i += pool_threads)
-      thread_row(i, acc, offsets, src_by_dst, schedule, contrib, total);
+      thread_row(i, acc, offsets, src_by_dst, schedule, gathered, total);
   }
 }
 
 // The cooperative grid: as many blocks as the card holds at once, asked
 // once per device.
-template <typename I>
+template <typename I, bool kWeighted>
 cudaError_t grid_size(int dev, unsigned* grid) {
   static std::mutex mu;
   static int cap[16] = {};
@@ -258,8 +271,8 @@ cudaError_t grid_size(int dev, unsigned* grid) {
             cudaSuccess ||
         (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
             cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_add_kernel<I>,
-                                                             kThreads, 0)) != cudaSuccess)
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, gather_add_kernel<I, kWeighted>, kThreads, 0)) != cudaSuccess)
       return err;
     if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     cap[dev] = sms * per_sm;
@@ -268,13 +281,13 @@ cudaError_t grid_size(int dev, unsigned* grid) {
   return cudaSuccess;
 }
 
-template <typename I>
+template <typename I, bool kWeighted>
 int launch(const void* init, const void* offsets, const void* src_by_dst,
            const void* schedule, const void* ranks, const void* inv_deg, void* scratch,
-           void* total, long long num_nodes, long long warp_rows, int dev,
+           void* total, long long num_nodes, long long num_src, long long warp_rows, int dev,
            cudaStream_t stream) {
   unsigned grid = 0;
-  cudaError_t err = grid_size<I>(dev, &grid);
+  cudaError_t err = grid_size<I, kWeighted>(dev, &grid);
   if (err != cudaSuccess) return (int)err;
   const float* in = static_cast<const float*>(init);
   const I* off = static_cast<const I*>(offsets);
@@ -283,11 +296,11 @@ int launch(const void* init, const void* offsets, const void* src_by_dst,
   const float* rk = static_cast<const float*>(ranks);
   const float* inv = static_cast<const float*>(inv_deg);
   float* contrib = static_cast<float*>(scratch);
-  float* prod = contrib + num_nodes;
+  float* prod = contrib + num_src;
   float* out = static_cast<float*>(total);
   void* args[] = {&in, &off, &src, &sch, &rk, &inv, &contrib, &prod, &out, &num_nodes,
-                  &warp_rows};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gather_add_kernel<I>), grid,
+                  &num_src, &warp_rows};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gather_add_kernel<I, kWeighted>), grid,
                                     kThreads, args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -299,7 +312,8 @@ int launch(const void* init, const void* offsets, const void* src_by_dst,
 // + 1] by schedule position, src_by_dst: [offsets[num_nodes]], schedule:
 // [num_nodes], all of ``index_bytes`` (4: int32, 8: int64); warp_rows: how
 // many of the schedule's first rows a warp takes; ranks, inv_deg: float32
-// [num_nodes] indexed by source; scratch: float32 [num_nodes +
+// [num_src] indexed by source, inv_deg null for an unweighted sum;
+// scratch: float32 [num_src +
 // offsets[warp_rows]] at least, overwritten; total: float32 [num_nodes],
 // every element written.  dev: the current device's index.  Returns 0
 // when launched, else a cudaError_t.
@@ -307,16 +321,19 @@ extern "C" int locust_pagerank_gather_add(const void* init, const void* offsets,
                                           const void* src_by_dst, const void* schedule,
                                           const void* ranks, const void* inv_deg,
                                           void* scratch, void* total, long long num_nodes,
-                                          long long warp_rows, int index_bytes, int dev,
-                                          void* stream) {
-  if (num_nodes < 0 || warp_rows < 0 || warp_rows > num_nodes) return (int)cudaErrorInvalidValue;
+                                          long long num_src, long long warp_rows,
+                                          int index_bytes, int dev, void* stream) {
+  if (num_nodes < 0 || num_src < 0 || warp_rows < 0 || warp_rows > num_nodes)
+    return (int)cudaErrorInvalidValue;
   if (num_nodes == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  auto go = [&](auto fn) {
+    return fn(init, offsets, src_by_dst, schedule, ranks, inv_deg, scratch, total, num_nodes,
+              num_src, warp_rows, dev, s);
+  };
   if (index_bytes == 4)
-    return launch<int32_t>(init, offsets, src_by_dst, schedule, ranks, inv_deg, scratch,
-                           total, num_nodes, warp_rows, dev, s);
+    return inv_deg ? go(launch<int32_t, true>) : go(launch<int32_t, false>);
   if (index_bytes == 8)
-    return launch<long long>(init, offsets, src_by_dst, schedule, ranks, inv_deg, scratch,
-                             total, num_nodes, warp_rows, dev, s);
+    return inv_deg ? go(launch<long long, true>) : go(launch<long long, false>);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,14 @@ add.  That is what ``index_add_`` computes on the CPU, where it adds in
 index order, and what the JAX package's scatter-add computes on the CPU;
 on CUDA ``index_add_`` adds in no fixed order.
 
+Sources and rows may be two index spaces (``num_src`` sources, indexing
+``ranks`` and ``inv_deg``, and ``num_nodes`` rows, indexing ``total``):
+one device's PageRank has one, the sharded PageRank's send sum (a
+rank's local nodes into its send slots) and receive sum (the received
+slots into its local nodes) have two.  With no ``inv_deg`` the sum is
+unweighted, ``c(e) = ranks[src[e]]``: the receive sum's slots are
+already products.
+
 ``in_edges`` builds the ``Grouping`` the kernel walks, once per graph (it
 is loop-invariant): the node schedule (node ids by in-degree, largest
 first, a stable sort), the in-edges grouped into one row per node in the
@@ -54,20 +62,23 @@ class Grouping(NamedTuple):
     warp_rows: int  # the first rows, those that take a warp each
 
 
-def index_dtype(num_nodes: int, num_edges: int) -> torch.dtype:
-    """int32 when every index and offset fits (``num_nodes + 1`` and the
-    edge count below 2^31), else int64."""
-    return torch.int32 if max(num_nodes + 1, num_edges) < 2**31 else torch.int64
+def index_dtype(num_nodes: int, num_edges: int, num_src: int = 0) -> torch.dtype:
+    """int32 when every index and offset fits (``num_nodes + 1``, the
+    edge count and the source count below 2^31), else int64."""
+    return torch.int32 if max(num_nodes + 1, num_edges, num_src) < 2**31 else torch.int64
 
 
 def in_edges(src: torch.Tensor, dst: torch.Tensor, num_nodes: int,
-             threshold: int = WARP_ROW_THRESHOLD, dtype: torch.dtype | None = None) -> Grouping:
-    """The ``Grouping`` of the edges ``src[i] -> dst[i]`` on their device:
-    the schedule a stable sort of the in-degrees, largest first; one row
-    per node in that order, each its in-edges in edge order (a stable
-    sort of the edges by their destination's schedule position); warp
-    rows those of more than ``threshold`` in-edges.  Indices are
-    ``dtype``, by default ``index_dtype``'s choice."""
+             threshold: int = WARP_ROW_THRESHOLD, dtype: torch.dtype | None = None,
+             num_src: int | None = None) -> Grouping:
+    """The ``Grouping`` of the edges ``src[i] -> dst[i]`` on their device,
+    ``dst`` in ``[0, num_nodes)`` and ``src`` in ``[0, num_src)``
+    (``num_nodes`` by default): the schedule a stable sort of the
+    in-degrees, largest first; one row per node in that order, each its
+    in-edges in edge order (a stable sort of the edges by their
+    destination's schedule position); warp rows those of more than
+    ``threshold`` in-edges.  Indices are ``dtype``, by default
+    ``index_dtype``'s choice."""
     s, d = src.to(torch.int64), dst.to(torch.int64)
     counts = torch.bincount(d, minlength=num_nodes)
     schedule = torch.sort(counts, descending=True, stable=True).indices
@@ -76,20 +87,20 @@ def in_edges(src: torch.Tensor, dst: torch.Tensor, num_nodes: int,
     order = torch.sort(position[d], stable=True).indices
     offsets = torch.zeros(num_nodes + 1, dtype=torch.int64, device=d.device)
     torch.cumsum(counts[schedule], 0, out=offsets[1:])
-    it = dtype or index_dtype(num_nodes, s.shape[0])
+    it = dtype or index_dtype(num_nodes, s.shape[0], num_nodes if num_src is None else num_src)
     return Grouping(offsets.to(it), s[order].to(it), schedule.to(it),
                     int((counts > threshold).sum()))
 
 
 def csr_walk_reference(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: torch.Tensor,
                        schedule: torch.Tensor, warp_rows: int, ranks: torch.Tensor,
-                       inv_deg: torch.Tensor) -> torch.Tensor:
+                       inv_deg: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version as explicit adds in order, on any device: the rows
     sorted by length, step ``j`` adds every row's ``j``-th contribution
     (the rows of more than ``j`` edges are a prefix) to its node's total;
     ``warp_rows`` changes nothing here."""
     n = offsets.shape[0] - 1
-    contrib = ranks[src_by_dst] * inv_deg[src_by_dst]
+    contrib = _products(src_by_dst, ranks, inv_deg)
     deg = offsets[1:] - offsets[:-1]
     by_deg = torch.sort(deg, descending=True, stable=True).indices
     start, deg_sorted, node = offsets[:-1][by_deg], deg[by_deg], schedule[by_deg].long()
@@ -101,34 +112,43 @@ def csr_walk_reference(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: to
     return acc
 
 
-def _plain(init, offsets, src_by_dst, schedule, warp_rows, ranks, inv_deg) -> torch.Tensor:
+def _products(src_by_dst: torch.Tensor, ranks: torch.Tensor,
+              inv_deg: torch.Tensor | None) -> torch.Tensor:
+    """Each edge's contribution in the grouping's order."""
+    if inv_deg is None:
+        return ranks[src_by_dst]
+    return ranks[src_by_dst] * inv_deg[src_by_dst]
+
+
+def _plain(init, offsets, src_by_dst, schedule, warp_rows, ranks, inv_deg=None) -> torch.Tensor:
     """Plain version for a CPU tensor: ``index_add_`` in the grouping's
     order (the CPU adds in index order)."""
     n = offsets.shape[0] - 1
     dst_sorted = torch.repeat_interleave(schedule.long(), (offsets[1:] - offsets[:-1]).long())
     return init.expand(n).clone().index_add_(
-        0, dst_sorted, ranks[src_by_dst] * inv_deg[src_by_dst])
+        0, dst_sorted, _products(src_by_dst, ranks, inv_deg))
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("pagerank").locust_pagerank_gather_add
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def gather_add(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: torch.Tensor,
                schedule: torch.Tensor, warp_rows: int, ranks: torch.Tensor,
-               inv_deg: torch.Tensor) -> torch.Tensor:
+               inv_deg: torch.Tensor | None = None) -> torch.Tensor:
     """``total[v] = init + sum of v's contributions in edge order``:
     float32 ``[num_nodes]`` on ``ranks``'s device.  ``init`` is a float32
     scalar tensor; ``offsets``, ``src_by_dst``, ``schedule`` and
     ``warp_rows`` the fields of ``in_edges``'s ``Grouping`` (sources, not
-    edge indices; int32 or int64, all three alike); ``ranks``/``inv_deg``
-    float32 ``[num_nodes]``."""
+    edge indices; int32 or int64, all three alike; ``num_nodes`` rows);
+    ``ranks``/``inv_deg`` float32 ``[num_src]``, indexed by source; no
+    ``inv_deg`` for an unweighted sum."""
     dev = ranks.device
     if dev.type == "cpu":
         return _plain(init, offsets, src_by_dst, schedule, warp_rows, ranks, inv_deg)
@@ -141,20 +161,23 @@ def gather_add(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: torch.Tens
     args = [init.reshape(1), offsets, src_by_dst, schedule, ranks, inv_deg]
     for name, t, dtype in zip(("init", "offsets", "src_by_dst", "schedule", "ranks", "inv_deg"),
                               args, (torch.float32, it, it, it, torch.float32, torch.float32)):
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+        if t is not None and (t.device != dev or t.dtype != dtype or not t.is_contiguous()):
             raise ValueError(f"pagerank gather-add: {name} must be a contiguous {dtype} "
                              f"tensor on {dev}")
-    if ranks.shape[0] != n or inv_deg.shape[0] != n or schedule.shape[0] != n:
-        raise ValueError("pagerank gather-add: ranks, inv_deg and schedule must have "
-                         "num_nodes rows")
+    num_src = ranks.shape[0]
+    if inv_deg is not None and inv_deg.shape[0] != num_src:
+        raise ValueError("pagerank gather-add: ranks and inv_deg must have one row per source")
+    if schedule.shape[0] != n:
+        raise ValueError("pagerank gather-add: the schedule must have num_nodes rows")
     if not 0 <= warp_rows <= n:
         raise ValueError(f"pagerank gather-add: warp_rows {warp_rows} outside 0..{n}")
     total = torch.empty(n, dtype=torch.float32, device=dev)
-    # Each node's product, then each warp-row edge's: the kernel's first phase.
-    scratch = torch.empty(n + src_by_dst.shape[0], dtype=torch.float32, device=dev)
+    # Each source's product, then each warp-row edge's: the kernel's first phase.
+    scratch = torch.empty(num_src + src_by_dst.shape[0], dtype=torch.float32, device=dev)
     with device_guard(dev):
-        rc = _kernel()(*(t.data_ptr() for t in args), scratch.data_ptr(), total.data_ptr(), n,
-                       int(warp_rows), it.itemsize, dev.index, stream_handle(dev))
+        rc = _kernel()(*(None if t is None else t.data_ptr() for t in args),
+                       scratch.data_ptr(), total.data_ptr(), n, num_src, int(warp_rows),
+                       it.itemsize, dev.index, stream_handle(dev))
     if rc != 0:
         raise KernelLaunchError(f"pagerank gather-add kernel launch failed: cudaError {rc}")
     gather_add.launches += 1

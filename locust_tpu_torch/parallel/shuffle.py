@@ -118,6 +118,14 @@ def _batch_to_host(table: KVBatch, mesh: Mesh, axis: str | None = None) -> dict:
     }
 
 
+def gather_batch_host(table: KVBatch, mesh: Mesh, axis: str | None = None) -> KVBatch:
+    """Every rank's shard of ``table`` gathered (along ``axis``; the whole
+    world when None) into one CPU batch, on every rank."""
+    host = _batch_to_host(table, mesh, axis)
+    return KVBatch(torch.from_numpy(host["key_lanes"].view(np.int32)),
+                   torch.from_numpy(host["values"]), torch.from_numpy(host["valid"]))
+
+
 def _batch_from_host(lanes, values, valid, mesh: Mesh) -> KVBatch:
     """This rank's shard of a host-replicated full table."""
     return KVBatch(
@@ -380,6 +388,17 @@ def partition_to_bins(batch: KVBatch, n_bins: int, bin_capacity: int,
     )
 
 
+def exchange_bins(mesh: Mesh, axis: str, lanes: torch.Tensor, values: torch.Tensor,
+                  valid: torch.Tensor) -> KVBatch:
+    """One all-to-all of ``partition_to_bins``' bins along ``axis`` (lanes,
+    values and valid packed in one int32 tensor): bin ``i`` goes to the
+    ``i``-th rank; returns what this rank received, sender-major."""
+    n_lanes = lanes.shape[-1]
+    packed = torch.cat([lanes, values[..., None], valid[..., None].to(torch.int32)], dim=-1)
+    recv = mesh.all_to_all(packed, axis).reshape(-1, n_lanes + 2)
+    return KVBatch(recv[:, :n_lanes], recv[:, n_lanes], recv[:, n_lanes + 1] != 0)
+
+
 def merge_stats_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Across-round merge of ``[..., 6]`` stats stacks: overflows and
     drains add, distinct and backlog take the later round's, the worst
@@ -456,15 +475,11 @@ class ShuffleStep:
         ``(acc, leftover, local)``: ``local`` is ``carry`` (``[0, 0,
         shuffle overflow so far, map overflow]``) plus this rank's backlog,
         distinct count and this round's shuffle overflow."""
-        n_lanes = self.cfg.key_lanes
         s_lanes, s_vals, s_valid, shuf_ovf, new_left = partition_to_bins(
             KVBatch.concat(table_in, leftover), self.n_bins, self.bin_capacity,
             leftover_capacity=self.leftover_capacity,
         )
-        packed = torch.cat([s_lanes, s_vals[..., None], s_valid[..., None].to(torch.int32)],
-                           dim=-1)
-        recv = self.mesh.all_to_all(packed, self.shuffle_axis).reshape(-1, n_lanes + 2)
-        received = KVBatch(recv[:, :n_lanes], recv[:, n_lanes], recv[:, n_lanes + 1] != 0)
+        received = exchange_bins(self.mesh, self.shuffle_axis, s_lanes, s_vals, s_valid)
         new_acc, distinct = fold_into(acc, received, self.shard_capacity, self.combine,
                                       self.cfg.sort_mode)
         local = torch.stack([new_left.valid.sum(dtype=torch.int32), distinct.to(torch.int32),

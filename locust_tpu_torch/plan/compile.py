@@ -23,11 +23,13 @@ port already trusts —
     commands print.
 
 A composition outside these signatures is a loud ``PlanError`` at
-compile time, never a silently-wrong execution.  The JAX package's mesh
-lowerings (``mesh=True``: the sharded WordCount, index and PageRank) wait
-for the port's mesh tier; until then ``mesh=True`` raises ``PlanError``
-and never runs the single-device path in its place.  A compiled plan
-runs on CUDA unless ``device`` says otherwise.
+compile time, never a silently-wrong execution.  Under ``mesh=True`` the
+folds lower onto the mesh tier (``locust_tpu_torch.parallel``, one rank
+per process, the world this process joined or a world of one): WordCount
+onto ``DistributedMapReduce``, the index onto
+``build_inverted_index_mesh`` and PageRank onto ``ShardedPageRank``; the
+tf fold has no mesh lowering.  A compiled plan runs on CUDA unless
+``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -84,19 +86,12 @@ class CompiledPlan:
 
     def __init__(self, plan: Plan, cfg=None, mesh: bool = False,
                  optimize: bool = True, device=None):
-        if mesh:
-            raise PlanError(
-                "mesh=True needs the mesh tier's plan lowerings (the sharded "
-                "inverted index and PageRank, ROADMAP.md queue 1 item 9c), "
-                "which are not ported yet; the flat and hierarchical "
-                "WordCount engines are (locust_tpu_torch.parallel, the "
-                "CLI's --mesh/--slices); run the plan single-device"
-            )
         from locust_tpu_torch.engine import resolve_device
 
         self.plan = plan  # the ORIGINAL plan: cache identity
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._engine = None  # lazy MapReduceEngine (wordcount fold)
         # The rewrite pass (plan/optimize.py) runs between validation
         # and lowering; ``self.plan`` stays the original so every
@@ -104,7 +99,7 @@ class CompiledPlan:
         # is the optimizer's output — byte-identical by the rule
         # contracts.
         self.optimized = (
-            optimize_plan(plan, cfg=cfg) if optimize else None
+            optimize_plan(plan, cfg=cfg, mesh=mesh) if optimize else None
         )
         self._lowered = (
             self.optimized.plan if self.optimized is not None else plan
@@ -120,6 +115,17 @@ class CompiledPlan:
             raise PlanError(
                 "a plan with a text source needs an EngineConfig"
             )
+        if mesh and self._needs_mesh_guard():
+            raise PlanError(
+                "the tf fold has no mesh lowering (the pair table is "
+                "device-bounded; use the index plan for the distributed "
+                "path)"
+            )
+
+    def _needs_mesh_guard(self) -> bool:
+        return any(
+            s[0] == "fold" and s[1] == "tf" for s in self._stages.values()
+        )
 
     # ------------------------------------------------------------ lowering
 
@@ -273,7 +279,8 @@ class CompiledPlan:
         delegates to ``MapReduceEngine.run_stream`` (same checkpoint/
         resume contract) and returns the raw ``RunResult``."""
         stage = self._stages[self._stages[self._root][2]]
-        if not (stage[0] == "fold" and stage[1] == "wordcount"):
+        if not (stage[0] == "fold" and stage[1] == "wordcount"
+                and not self.mesh):
             raise PlanError(
                 "run_stream supports the single-device wordcount fold "
                 "plan only"
@@ -328,8 +335,8 @@ class CompiledPlan:
 def compile_plan(plan: Plan, cfg=None, mesh: bool = False,
                  optimize: bool = True, device=None) -> CompiledPlan:
     """Lower ``plan`` onto the engine tier; raises ``PlanError`` on any
-    composition outside the supported signatures, and on ``mesh=True``
-    until the mesh tier is ported.  ``optimize=False`` skips the rewrite
+    composition outside the supported signatures.  ``optimize=False``
+    skips the rewrite
     pass (plan/optimize.py) — the naive 1:1 lowering the optimizer's
     byte-identity contract is pinned against.  ``device=None`` is
     CUDA."""
@@ -372,6 +379,7 @@ class _RunCtx:
             and self.finalize
             and not self.timed
             and not self.checkpoint_dir
+            and not self.cp.mesh
         )
 
     # -------------------------------------------------------------- eval
@@ -576,6 +584,20 @@ class _RunCtx:
         src_node = self.cp._stages[stage[2]][1]
         rows, ids = self.eval(stage[2])
         cfg, dev = self.cp.cfg, self.cp.device
+        if fold == "wordcount" and self.cp.mesh:
+            from locust_tpu_torch.parallel.mesh import make_mesh
+            from locust_tpu_torch.parallel.shuffle import DistributedMapReduce
+
+            opt = self.cp.optimized
+            if opt is not None and opt.fuse_kernel:
+                # fuse_fold_kernel fires for mesh jobs too: the mesh
+                # engine's own gate decides at construction (a CPU rank
+                # demotes explicitly, fused_demoted, and folds as hasht).
+                cfg = dataclasses.replace(cfg, sort_mode="fused")
+            res = DistributedMapReduce(make_mesh(device=dev), cfg).run(rows)
+            pairs = res.to_host_pairs() if self.finalize else None
+            self._acct[sid] = (res.distinct, res.truncated, res.emit_overflow)
+            return pairs
         if fold == "wordcount":
             eng = self.cp._wordcount_engine()
             if self.checkpoint_dir:
@@ -604,6 +626,15 @@ class _RunCtx:
                 len(set(int(d) for d in ids)) or 1
             )
             return tf
+        if fold == "index" and self.cp.mesh:
+            from locust_tpu_torch.apps.inverted_index import (
+                build_inverted_index_mesh,
+            )
+            from locust_tpu_torch.parallel.mesh import make_mesh
+
+            index = build_inverted_index_mesh(rows, ids, make_mesh(device=dev), cfg)
+            self._acct[sid] = (len(index), False, 0)
+            return index
         if fold == "index":
             from locust_tpu_torch.apps.inverted_index import (
                 build_inverted_index,
@@ -647,7 +678,7 @@ class _RunCtx:
         return pairs
 
     def _eval_pagerank(self, sid: str, stage):
-        from locust_tpu_torch.apps.pagerank import pagerank
+        from locust_tpu_torch.apps.pagerank import ShardedPageRank, pagerank
 
         _, src_id, num_iters, damping = stage
         src, dst = self.eval(src_id)
@@ -664,10 +695,16 @@ class _RunCtx:
                 f"endpoint's cap ({self.max_nodes}); renumber the "
                 "graph or run it through the CLI"
             )
-        ranks = pagerank(
-            src, dst, num_nodes=n, num_iters=num_iters, damping=damping,
-            device=self.cp.device,
-        ).cpu().numpy()
+        if self.cp.mesh:
+            from locust_tpu_torch.parallel.mesh import make_mesh
+
+            ranks = ShardedPageRank(make_mesh(device=self.cp.device), n,
+                                    damping=damping).run(src, dst, num_iters=num_iters)
+        else:
+            ranks = pagerank(
+                src, dst, num_nodes=n, num_iters=num_iters, damping=damping,
+                device=self.cp.device,
+            ).cpu().numpy()
         self._acct[sid] = (n, False, 0)
         return ranks
 

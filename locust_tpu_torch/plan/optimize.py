@@ -89,8 +89,8 @@ def _fuse_fold_kernel(plan: Plan, cfg, mesh: bool, applied: list) -> bool:
     own eligibility check stays the runtime authority: off supported
     shapes it degrades to plain hasht, byte-identically.  Static only —
     this module never probes a device.  The rule fires for ``mesh=True``
-    too, as in the JAX package; the port's compiler refuses mesh plans
-    until the mesh tier is ported (plan/compile.py)."""
+    too, as in the JAX package: the mesh engine's own gate
+    (``fused_mesh_eligible``) decides there at construction."""
     if cfg is None or getattr(cfg, "sort_mode", None) != "hasht":
         return False
     by_id = plan.by_id()

@@ -2548,12 +2548,19 @@ class ServeDaemon:
                     meta=meta,
                 )
             return
+        if not job.spec.no_cache:
+            # The result cache first: a client that sees "done" and
+            # resubmits the same work must find it cached.
+            self.results.put(
+                job.corpus_digest, job.spec.fingerprint(), pairs,
+                meta=meta,
+            )
         with self._lock:
             # state flips to "done" LAST: status/result handlers read
             # job fields without this lock, so the state write is the
             # publish barrier — a reader seeing "done" must also see the
             # result (done-with-None-result would answer an empty pairs
-            # list as success).
+            # list as success) and the result cache's entry.
             job.cache = cache_label
             job.finished_s = done
             job.result = pairs
@@ -2565,11 +2572,6 @@ class ServeDaemon:
             self._completed += 1
             self._result_bytes += size
             self._evict_history(keep=job.job_id)
-        if not job.spec.no_cache:
-            self.results.put(
-                job.corpus_digest, job.spec.fingerprint(), pairs,
-                meta=meta,
-            )
         if self.journal is not None:
             self.journal.append_state(job.job_id, "done")
         obs.metric_inc("serve.jobs")

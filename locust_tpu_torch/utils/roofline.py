@@ -178,19 +178,25 @@ def fused_min_ops(lines: int, width: int) -> int:
     return lines * width
 
 
-def pagerank_gather_min_bytes(num_nodes: int, num_edges: int, index_bytes: int = 8) -> int:
+def pagerank_gather_min_bytes(num_nodes: int, num_edges: int, index_bytes: int = 8,
+                              num_src: int | None = None, weighted: bool = True) -> int:
     """PageRank's ordered gather-add (``csrc/pagerank.cu``): the initial
     value, the CSR offsets and sources (``index_bytes=4`` for the int32
     indices the kernel takes below 2^31 nodes and edges, 8 for int64),
-    the float32 ranks and inverse degrees in, once each; the float32
-    totals out.  The node schedule is the kernel's layout, not the
-    function's work, and is not counted."""
-    return 4 + index_bytes * (num_nodes + 1 + num_edges) + 4 * num_nodes * 3
+    the float32 ranks of the ``num_src`` sources (``num_nodes`` by
+    default) and, for a ``weighted`` sum, their inverse degrees in, once
+    each; the float32 totals of the ``num_nodes`` rows out.  The node
+    schedule is the kernel's layout, not the function's work, and is not
+    counted."""
+    src = num_nodes if num_src is None else num_src
+    per_src = 8 if weighted else 4
+    return 4 + index_bytes * (num_nodes + 1 + num_edges) + per_src * src + 4 * num_nodes
 
 
-def pagerank_gather_min_ops(num_edges: int) -> int:
-    """Its operations: one float32 multiply and one add per edge."""
-    return 2 * num_edges
+def pagerank_gather_min_ops(num_edges: int, weighted: bool = True) -> int:
+    """Its operations: one float32 add per edge, and for a ``weighted``
+    sum one multiply."""
+    return (2 if weighted else 1) * num_edges
 
 
 # Cycles from one float32 add to the next that depends on it (Hopper's

@@ -130,12 +130,19 @@ def test_trace_out_validates_under_both_schemas(files, capfdbinary, argv, spans)
 
 
 @pytest.mark.parametrize("argv", [["index", "{text}", "--mesh"], ["pagerank", "{edges}", "--mesh"]])
-def test_mesh_flag_exits_until_the_mesh_tier_lands(files, capfdbinary, argv):
-    """The JAX CLI runs these on its device mesh; the port refuses them
-    and never runs the single-device path in their place."""
+def test_mesh_flag_runs_the_mesh_apps_as_jax(files, capfdbinary, monkeypatch, argv):
+    """The JAX CLI runs these on its device mesh, the port on its world of
+    ranks (one, in this process, on the CPU): the same bytes on a mesh
+    of the same size."""
+    from locust_tpu.parallel import mesh as jmesh
+
+    real = jmesh.make_mesh
+    monkeypatch.setattr(jmesh, "make_mesh", lambda n_devices=None, **k: real(1, **k))
     argv = [a.format(**{k: str(v) for k, v in files.items()}) for a in argv]
+    rc, want = _run(capfdbinary, jcli.main, argv + ["--backend", "cpu"])
+    assert rc == 0
     rc, out = _run(capfdbinary, tcli.main, argv + ["--backend", "cpu"])
-    assert rc == 2 and b"mesh tier" in out.err and out.out == b""
+    assert rc == 0 and out.out == want.out and out.out.count(b"\n") > 100
 
 
 @pytest.mark.parametrize("argv,rc,msg", [

@@ -196,7 +196,8 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "            'serve.scheduler', 'serve.cache', 'serve.batch', 'serve.journal',\n"
         "            'serve.client', 'serve.daemon', 'serve.__main__', 'serve.pool',\n"
         "            'serve.replicate', 'plan.distribute', 'parallel', 'parallel.mesh',\n"
-        "            'parallel.shuffle', 'parallel.hierarchical', 'ops.kernels.pagerank'):\n"
+        "            'parallel.shuffle', 'parallel.hierarchical', 'ops.kernels.pagerank',\n"
+        "            'apps.sample_sort'):\n"
         "    assert 'locust_tpu_torch.' + sub in names, sub\n"
         "import locust_tpu_torch.distributor.protocol, locust_tpu_torch.distributor.worker\n"
         "import locust_tpu_torch.distributor.master, locust_tpu_torch.distributor.microbench\n"

@@ -19,6 +19,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from locust_tpu import cli as jcli
 from locust_tpu_torch import cli as tcli
@@ -387,11 +388,19 @@ def test_wordcount_job_halves_wire_bytes_vs_json_plane(tmp_path, capsysbinary):
         workers = [Worker(secret=SECRET, map_runner=_inproc_runner()) for _ in range(2)]
         for w in workers:
             w.serve_in_thread()
+        # The two workers' maps run at once in this process and share its
+        # intra-op thread pool: with torch's default thread count each op
+        # of one map waits on the other's parallel regions, and on a
+        # loaded host a map took 20x its time alone.  One thread each, as
+        # two worker processes on their own cores would run.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
         try:
             return master.run_job([w.addr for w in workers], str(corpus), SECRET,
                                   workdir=str(tmp_path / subdir), rpc_timeout=30.0,
                                   **plane_kw)
         finally:
+            torch.set_num_threads(threads)
             for w in workers:
                 _shutdown(w)
 

@@ -131,7 +131,8 @@ def _schedule_walk(init, grouping, ranks, inv_deg, warps=12):
     once."""
     off = grouping.offsets.numpy().astype(np.int64)
     src, sched = grouping.src_by_dst.numpy(), grouping.schedule.numpy()
-    r, d = ranks.numpy(), inv_deg.numpy()
+    r = ranks.numpy()
+    d = np.ones_like(r) if inv_deg is None else inv_deg.numpy()  # r * 1.0 is r
     n, rows = len(sched), grouping.warp_rows
     contrib = r * d
     prod = r[src[:off[rows]]] * d[src[:off[rows]]]
@@ -334,3 +335,82 @@ def test_index_width_is_int32_below_2_to_the_31():
     inv = torch.from_numpy(np.random.default_rng(4).random(33).astype(np.float32))
     init = torch.tensor(np.float32(0.01))
     assert torch.equal(gather_add(init, *g32, ranks, inv), gather_add(init, *g64, ranks, inv))
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("graph", ["zipf", "g1003", "dangling"])
+def test_gather_add_two_index_spaces_equal_jax_segment_sums(graph, rank):
+    """The sharded PageRank's two sums on a world of 2 (tests/
+    torch_mesh_rig.py's graphs), where sources and rows are two index
+    spaces: the send sum (``npd`` local nodes into ``2 * cap`` send
+    slots) and the receive sum (the ``2 * cap`` received slots into the
+    ``npd`` local nodes, the dump entries dropped; unweighted, no
+    ``inv_deg``).  Both plain versions,
+    the walk of the kernel's schedule on grids of 1 to 12 warps and an
+    int64 grouping give the bits of JAX's ``segment_sum`` there."""
+    import torch_mesh_rig as rig
+
+    from locust_tpu.apps.pagerank import ShardedPageRank as JSharded
+    from locust_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from locust_tpu_torch.apps.pagerank import ShardedPageRank
+    from locust_tpu_torch.ops.kernels.pagerank import Grouping, csr_walk_reference, gather_add
+    from locust_tpu_torch.parallel.mesh import Mesh
+
+    n, src, dst = rig.pr_graph(graph)
+    sp = ShardedPageRank(Mesh(rank, 2, ("data",), (2,), {"data": None},
+                              torch.device("cpu"), "gloo"), n)
+    plan = JSharded(jmake_mesh(2), n)._build_plan(src, dst)
+    npd, n_slots = sp.npd, 2 * plan["cap"]
+    assert npd != n_slots
+    send_g, recv_g = sp.groupings(plan)
+    rng = np.random.default_rng(rank)
+    ranks = rng.random(npd).astype(np.float32) / n
+    inv = (1.0 / rng.integers(1, 9, npd)).astype(np.float32)
+    recv = rng.random(n_slots).astype(np.float32) / n
+    w = ranks[plan["src_l"][rank]] * inv[plan["src_l"][rank]] * plan["mask"][rank]
+    want_send = np.asarray(jax.ops.segment_sum(w, plan["send_seg"][rank],
+                                               num_segments=n_slots + 1))[:n_slots]
+    want_recv = np.asarray(jax.ops.segment_sum(recv, plan["recv_map"][rank].reshape(-1),
+                                               num_segments=npd + 1))[:npd]
+    zero = torch.zeros(())
+    for g, r, i, want in ((send_g, ranks, inv, want_send),
+                          (recv_g, recv, None, want_recv)):
+        r, i = torch.from_numpy(r), None if i is None else torch.from_numpy(i)
+        assert g.offsets.dtype == torch.int32 and g.schedule.shape[0] != r.shape[0]
+        g64 = Grouping(*(t.to(torch.int64) for t in g[:3]), g.warp_rows)
+        got = gather_add(zero, *g, r, i)
+        assert np.array_equal(got.numpy(), want)
+        assert torch.equal(csr_walk_reference(zero, *g, r, i), got)
+        assert torch.equal(gather_add(zero, *g64, r, i), got)
+        for warps in (1, 2, 5, 12):
+            assert torch.equal(_schedule_walk(zero, g, r, i, warps), got)
+
+
+def test_gather_add_sums_over_a_separate_source_space():
+    """Five sources into two rows: ``ranks``/``inv_deg`` have the source
+    count, the schedule the row count, and the index width counts the
+    sources too."""
+    from locust_tpu_torch.ops.kernels.pagerank import gather_add, in_edges, index_dtype
+
+    assert index_dtype(10, 10, 2**31) == torch.int64
+    g = in_edges(torch.tensor([0, 4, 4]), torch.tensor([1, 1, 0]), 2, num_src=5)
+    r = torch.arange(5, dtype=torch.float32)
+    got = gather_add(torch.tensor(0.5), *g, r, torch.ones(5))
+    assert got.tolist() == [4.5, 4.5]
+    assert torch.equal(gather_add(torch.tensor(0.5), *g, r), got)
+
+
+def test_unweighted_gather_add_equals_a_weight_of_one():
+    """No ``inv_deg`` sums the ranks themselves: both plain versions give
+    the bits of the same sum weighted by ones (``r * 1.0`` is ``r``)."""
+    from locust_tpu_torch.ops.kernels.pagerank import csr_walk_reference, gather_add, in_edges
+
+    rng = np.random.default_rng(11)
+    src, dst = rng.integers(0, 50, 400), rng.zipf(1.5, 400) % 20
+    g = in_edges(torch.from_numpy(src), torch.from_numpy(dst), 20, threshold=8, num_src=50)
+    r = torch.from_numpy(rng.random(50).astype(np.float32))
+    init = torch.tensor(np.float32(0.125))
+    want = gather_add(init, *g, r, torch.ones(50))
+    assert torch.equal(gather_add(init, *g, r), want)
+    assert torch.equal(csr_walk_reference(init, *g, r), want)
+    assert torch.equal(_schedule_walk(init, g, r, None, 3), want)

@@ -3,7 +3,8 @@ package: canonical JSON and fingerprints of the four builders, a join
 plan and random plans; validation and lowering errors; the optimizer's
 four rewrite rules, identity-pinned; the sub-plan cache branch and
 ``incremental_fold`` through ``run_corpus`` with each package's own
-``SubPlanCache`` (entries and counters equal); every plan's rendered bytes; and ``mesh=True`` refused."""
+``SubPlanCache`` (entries and counters equal); every plan's rendered
+bytes, single-device and under ``mesh=True`` (the tf fold refused)."""
 
 import dataclasses
 import hashlib
@@ -184,10 +185,34 @@ def test_run_time_plan_errors_equal_jax():
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
-def test_mesh_lowerings_refuse(name):
+def test_mesh_lowerings_equal_jax(name, monkeypatch):
+    """Each plan under ``mesh=True`` as JAX's on a mesh of the port's
+    world's size (one rank, in this process); the tf fold refuses."""
+    from locust_tpu.parallel import mesh as jmesh
+    from locust_tpu_torch.parallel.mesh import shutdown
+
+    real = jmesh.make_mesh
+    monkeypatch.setattr(jmesh, "make_mesh", lambda n_devices=None, **k: real(1, **k))
     cfg = None if name == "pagerank" else TCFG
-    with pytest.raises(tplan.PlanError, match="mesh tier"):
-        tcompile(PLANS[name](tplan), cfg, mesh=True)
+    jcfg = None if name == "pagerank" else JCFG
+    if name == "tfidf":
+        with pytest.raises(jplan.PlanError) as theirs:
+            jcompile(PLANS[name](jplan), jcfg, mesh=True)
+        with pytest.raises(tplan.PlanError) as ours:
+            tcompile(PLANS[name](tplan), cfg, mesh=True)
+        assert str(ours.value) == str(theirs.value)
+        return
+    data, kw = EDGES if name == "pagerank" else (
+        {"left": LINES, "right": LINES[:10]} if name == "join" else LINES), (
+        {"num_nodes": 9} if name == "pagerank" else {})
+    want = jcompile(PLANS[name](jplan), jcfg, mesh=True).run(data, **kw)
+    try:
+        got = tcompile(PLANS[name](tplan), cfg, mesh=True).run(data, **kw)
+    finally:
+        shutdown()
+    assert got.output == want.output and len(got.output) > 20
+    assert (got.distinct, got.truncated, got.overflow_tokens) == \
+        (want.distinct, want.truncated, want.overflow_tokens)
 
 
 _jax_runs = {}

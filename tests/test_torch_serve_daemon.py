@@ -6,6 +6,7 @@ counter agree exactly, and the pairs equal the oracle."""
 
 import re
 import socket
+import time
 
 import pytest
 from torch_serve_rig import (
@@ -41,11 +42,29 @@ def both(fn, rigs):
     return [fn(d, c) for d, c in rigs]
 
 
-def run_job(client, corpus, **kw):
+def run_job(client, corpus, daemon=None, **kw):
+    """Submit and wait.  With ``daemon``, a cacheable job is waited for
+    until its result is in the daemon's result cache too: the JAX daemon
+    flips a job to "done" before its dispatcher puts the result there,
+    so a client that resubmits at once can miss it under load."""
     ack = client.submit(corpus=corpus, config=kw.pop("config", CFG_OVR), **kw)
     if ack["cached"]:
         return ack, client.result(ack["job_id"])
-    return ack, client.wait(ack["job_id"], timeout=120.0)
+    res = client.wait(ack["job_id"], timeout=120.0)
+    if daemon is not None and not kw.get("no_cache"):
+        published(daemon, ack["job_id"])
+    return ack, res
+
+
+def published(daemon, job_id, timeout=30.0):
+    """Wait until the finished job's result is in the daemon's result
+    cache (both packages key it by corpus digest and spec fingerprint)."""
+    job = daemon._jobs[job_id]
+    key = (job.corpus_digest, job.spec.fingerprint())
+    deadline = time.monotonic() + timeout
+    while key not in daemon.results._entries:
+        assert time.monotonic() < deadline, f"{job_id} never reached the result cache"
+        time.sleep(0.005)
 
 
 def outcome(fn, client):
@@ -65,8 +84,8 @@ def rigs(tmp_path):
 
 def test_submit_result_roundtrip_and_repeat_hits_result_cache(rigs):
     def go(d, c):
-        a1, r1 = run_job(c, CORPUS_A)
-        a2, r2 = run_job(c, CORPUS_A)
+        a1, r1 = run_job(c, CORPUS_A, d)
+        a2, r2 = run_job(c, CORPUS_A, d)
         st = c.status(a1["job_id"])
         assert st["latency_ms"] is not None and st["queue_ms"] is not None
         return (a1["cached"], a2["cached"], result_view(r1), result_view(r2),
@@ -82,7 +101,7 @@ def test_result_cache_replays_truncation_flags(rigs):
     lossy = b"a b c d e f g h i j k l m\n" * 4  # 13 tokens > cap of 8
 
     def go(d, c):
-        return [result_view(run_job(c, lossy)[1]) for _ in range(2)]
+        return [result_view(run_job(c, lossy, d)[1]) for _ in range(2)]
 
     j, t = both(go, rigs)
     assert t == j and t[0]["overflow_tokens"] > 0
@@ -119,12 +138,12 @@ def test_second_identical_job_is_a_warm_hit(rigs):
 
 def test_explicit_invalidation_and_unknown_job_invalidate(rigs):
     def go(d, c):
-        a1, _ = run_job(c, CORPUS_A)
+        a1, _ = run_job(c, CORPUS_A, d)
         bad = c.rpc({"cmd": "invalidate", "job_id": "no-such-id"})
         cached = c.submit(corpus=CORPUS_A, config=CFG_OVR)["cached"]
         n = c.invalidate(job_id=a1["job_id"])
-        _, r = run_job(c, CORPUS_A)
-        fresh = run_job(c, CORPUS_A, invalidate=True)[1]
+        _, r = run_job(c, CORPUS_A, d)
+        fresh = run_job(c, CORPUS_A, d, invalidate=True)[1]
         return ((bad["status"], bad["code"]), cached, n, result_view(r),
                 result_view(fresh), stats_view(c.stats()))
 
@@ -245,13 +264,17 @@ def test_close_fails_stranded_queued_jobs_structured():
 
 def test_rejected_submit_with_invalidate_preserves_cache():
     def go(d, c):
-        run_job(c, CORPUS_A)
+        run_job(c, CORPUS_A, d)
         d.scheduler.pause()
-        c.submit(corpus=b"fill\n", config=CFG_OVR)
+        fill = c.submit(corpus=b"fill\n", config=CFG_OVR)["job_id"]
         err = outcome(lambda c: c.submit(corpus=CORPUS_A, config=CFG_OVR,
                                          invalidate=True), c)
         hit = c.submit(corpus=CORPUS_A, config=CFG_OVR)["cached"]
         d.scheduler.resume()
+        # The queued job runs once resumed: the counters are read after
+        # its result is cached, not while it races the stats request.
+        c.wait(fill, timeout=120.0)
+        published(d, fill)
         return err, hit, stats_view(c.stats())["result_cache"]
 
     with pair(max_queue=1, max_batch=4, dispatch_poll_s=0.02) as rigs:
@@ -414,7 +437,7 @@ def test_cli_status_cancel_and_invalidate(capsys, monkeypatch):
     port = ["--port", str(d.addr[1]), "--secret-env", "LOCUST_TEST_SECRET"]
     monkeypatch.setenv("LOCUST_TEST_SECRET", SECRET.decode())
     try:
-        done = run_job(c, CORPUS_A)[0]["job_id"]
+        done = run_job(c, CORPUS_A, d)[0]["job_id"]
         d.scheduler.pause()
         queued = c.submit(corpus=CORPUS_B, config=CFG_OVR)["job_id"]
         capsys.readouterr()

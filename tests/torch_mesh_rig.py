@@ -294,6 +294,200 @@ def _suite_resume(pkg, parallel, mesh, out: dict, outdir: str, me: str, other: s
     out["n_lines"] = int(rows.shape[0])
 
 
+# ------------------------------------------------------------ the mesh apps
+# The scenarios of tests/test_apps.py for the mesh apps (PageRank, the
+# inverted index, the sample sort), each run by both packages through
+# ``apps`` (``locust_tpu.apps`` or ``locust_tpu_torch.apps``).
+
+APP_CFG = {"block_lines": 8, "line_width": 64, "emits_per_line": 8}
+
+
+def pr_graph(kind: str):
+    """``(num_nodes, src, dst)``: uniform graphs of 8 edges a node
+    (``g64``, ``g1000``, ``g1003``), one node's edges into node 0 with
+    every other node dangling (``dangling``: most (sender, destination
+    shard) pairs carry nothing, a shard's send slots are empty), and a
+    skewed graph with dangling nodes (``zipf``)."""
+    if kind == "dangling":
+        return 64, np.array([1, 1, 1], np.int32), np.array([0, 0, 0], np.int32)
+    if kind == "zipf":
+        rng = np.random.default_rng(2)
+        n, e = 1003, 9000
+        src = rng.integers(0, n, e).astype(np.int32)
+        src[src % 5 == 0] = 7
+        return n, src, (rng.zipf(1.4, e) % n).astype(np.int32)
+    n = int(kind[1:])
+    rng = np.random.default_rng(1)
+    return (n, rng.integers(0, n, n * 8).astype(np.int32),
+            rng.integers(0, n, n * 8).astype(np.int32))
+
+
+# name -> (class, graph, iterations)
+PAGERANK = {
+    "sharded_64": ("ShardedPageRank", "g64", 15),
+    "sharded_1000": ("ShardedPageRank", "g1000", 15),
+    "sharded_1003": ("ShardedPageRank", "g1003", 15),
+    "sharded_dangling": ("ShardedPageRank", "dangling", 10),
+    "sharded_zipf": ("ShardedPageRank", "zipf", 20),
+    "distributed_1003": ("DistributedPageRank", "g1003", 15),
+    "distributed_zipf": ("DistributedPageRank", "zipf", 20),
+}
+
+
+def run_pagerank(apps, mesh, name: str) -> np.ndarray:
+    cls, graph, iters = PAGERANK[name]
+    n, src, dst = pr_graph(graph)
+    return np.asarray(getattr(apps, cls)(mesh, n).run(src, dst, num_iters=iters))
+
+
+def index_docs(kind: str) -> dict:
+    """doc id -> text, the corpora of tests/test_apps.py's mesh index
+    tests; ``long`` has lines past the 8-token cap (dropped postings)."""
+    if kind == "oracle":
+        rng = np.random.default_rng(5)
+        vocab = [f"term{i}".encode() for i in range(40)] + [b"the"] * 4
+        return {d: b" ".join(rng.choice(vocab, size=rng.integers(0, 7)).tolist())
+                for d in range(200)}
+    if kind == "skew":
+        rng = np.random.default_rng(9)
+        vocab = [f"w{i}".encode() for i in range(120)]
+        return {d: b" ".join(rng.choice(vocab, size=5).tolist()) for d in range(64)}
+    vocab = [f"w{i}".encode() for i in range(100)]
+    if kind == "capacity":
+        return {d: b" ".join(vocab[d % 50:d % 50 + 6]) for d in range(64)}
+    if kind == "long":
+        return {d: b" ".join(vocab[d % 30:d % 30 + 3 + d % 9]) for d in range(48)}
+    raise KeyError(kind)
+
+
+# name -> (corpus, index kwargs)
+INDEX = {"oracle": ("oracle", {}), "skew": ("skew", {"skew_factor": 0.2}),
+         "capacity": ("capacity", {"pairs_capacity": 4}), "dropped": ("long", {})}
+
+
+class _Warnings:
+    """The warnings both packages' loggers emit while open."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages, handler = [], logging.Handler()
+        handler.emit = lambda r: self.messages.append(r.getMessage())
+        self.loggers = [logging.getLogger(n) for n in ("locust_tpu", "locust_tpu_torch")]
+        self.handler = handler
+        for lg in self.loggers:
+            lg.addHandler(handler)
+        return self
+
+    def __exit__(self, *exc):
+        for lg in self.loggers:
+            lg.removeHandler(self.handler)
+
+
+def run_index(apps, pkg, mesh, name: str) -> dict:
+    """One INDEX scenario: the index ({word hex: doc ids}) or the error,
+    the warnings logged, and for ``oracle`` ``run_stream`` over chunks of
+    one round."""
+    kind, kw = INDEX[name]
+    docs = index_docs(kind)
+    cfg = pkg.EngineConfig(**APP_CFG)
+    lines, ids = list(docs.values()), np.asarray(list(docs), np.int32)
+    out = {}
+    with _Warnings() as w:
+        try:
+            got = apps.build_inverted_index_mesh(lines, ids, mesh, cfg, **kw)
+            out["index"] = {k.hex(): v for k, v in sorted(got.items())}
+        except ValueError as e:
+            out["error"] = str(e)
+    out["warnings"] = w.messages
+    if name == "oracle":
+        idx = apps.DistributedInvertedIndex(mesh, cfg, **kw)
+        rows = pkg.core.bytes_ops.strings_to_rows(lines, cfg.line_width)
+        lpr = idx.lines_per_round
+        got = idx.run_stream((rows[i:i + lpr], ids[i:i + lpr])
+                             for i in range(0, rows.shape[0], lpr))
+        out["stream"] = {k.hex(): v for k, v in sorted(got.items())}
+    return out
+
+
+def sort_words(kind: str) -> list[bytes]:
+    if kind in ("random", "padding"):
+        rng = np.random.default_rng(7 if kind == "random" else 3)
+        return [bytes(rng.integers(97, 123, size=rng.integers(1, 12)).astype(np.uint8))
+                for _ in range(4000 if kind == "random" else 1000)]
+    if kind == "dups":
+        return [b"same"] * 300 + [b"other"] * 200 + [b"zz", b"aa"] * 50
+    if kind == "budget":
+        return [b"same"] * 512
+    return [b"delta", b"alpha", b"echo", b"charlie", b"bravo", b"foxtrot"]
+
+
+# name -> (entry point, words, kwargs): ``strings`` is sort_strings,
+# ``rows`` DistributedSort.sort_rows, ``overflow`` the overflow of
+# sort_rows at each skew factor sort_strings' retries take.
+SORT = {
+    "random": ("strings", "random", {}),
+    "dups": ("strings", "dups", {}),
+    "dups_retry": ("strings", "dups", {"skew_factor": 0.5}),
+    "budget": ("strings", "budget", {"max_retries": 0, "skew_factor": 0.25}),
+    "values": ("rows", "values", {"rows_per_device": 8}),
+    "padding": ("rows", "padding", {"rows_per_device": 1024}),
+    "dups_overflow": ("overflow", "dups", {}),
+}
+
+
+def run_sort(apps, pkg, mesh, name: str) -> dict:
+    entry, kind, kw = SORT[name]
+    words = sort_words(kind)
+    cfg = pkg.EngineConfig(**APP_CFG)
+    if entry == "strings":
+        try:
+            return {"keys": [k.hex() for k in apps.sort_strings(words, mesh, cfg, **kw)]}
+        except ValueError as e:
+            return {"error": str(e)}
+    rows = pkg.core.bytes_ops.strings_to_rows(words, cfg.key_width)
+    if entry == "rows":
+        res = apps.DistributedSort(mesh, cfg, **kw).sort_rows(rows)
+        return {"pairs": [[k.hex(), v] for k, v in res.to_host_sorted()],
+                "overflow": res.overflow}
+    n_dev = mesh.shape["data"]
+    rpd = (-(-len(words) // n_dev) + 7) // 8 * 8  # sort_strings' rows per device
+    return {"overflow": [apps.DistributedSort(mesh, cfg, rpd, skew_factor=s).sort_rows(
+        rows).overflow for s in (0.25, 0.5, 1.0, 2.0, 4.0)]}
+
+
+def sorted_runs(pairs) -> tuple[list, dict]:
+    """A sort's keys in order, and each run of equal keys' values as a
+    multiset (the JAX package's sorts are not stable, the port's are)."""
+    import collections
+
+    by_key = collections.defaultdict(collections.Counter)
+    for k, v in pairs:
+        by_key[k][v] += 1
+    return [k for k, _ in pairs], dict(by_key)
+
+
+def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=()) -> None:
+    from locust_tpu_torch import apps
+
+    for name in pagerank:
+        tables[name] = {"ranks": run_pagerank(apps, mesh, name)}
+    for name in index:
+        out[f"index_{name}"] = run_index(apps, pkg, mesh, name)
+    for name in sort:
+        out[f"sort_{name}"] = run_sort(apps, pkg, mesh, name)
+
+
+APP_SUITES = {
+    "apps_pagerank": dict(pagerank=tuple(PAGERANK)),
+    "apps_index": dict(index=tuple(INDEX)),
+    "apps_sort": dict(sort=tuple(SORT)),
+    "apps_world4": dict(pagerank=("sharded_1003", "sharded_dangling", "distributed_zipf"),
+                        index=("oracle", "skew"),
+                        sort=("random", "dups", "dups_retry", "dups_overflow")),
+}
+
+
 def worker(pkg_name: str, coordinator: str, n: int, pid: int, outdir: str, suite: str) -> int:
     out, tables = {}, {}
     if pkg_name == "jax":
@@ -326,6 +520,8 @@ def worker(pkg_name: str, coordinator: str, n: int, pid: int, outdir: str, suite
                     pkg, parallel, lambda s, d: parallel.make_mesh_2d(s, d, device="cpu"), name)
         elif suite == "hier":
             _suite_hier(pkg, parallel, out, tables, outdir)
+        elif suite in APP_SUITES:
+            _suite_apps(pkg, parallel.make_mesh(device="cpu"), out, tables, **APP_SUITES[suite])
         else:
             _suite_resume(pkg, parallel, parallel.make_mesh(device="cpu"), out, outdir,
                           "torch", "jax", dist.barrier, rank)
