@@ -203,6 +203,27 @@ def phase(name: str):
     log(f"== {name}: done in {time.perf_counter() - t0:.3f} s")
 
 
+def analysis_phase() -> dict:
+    """The port's static invariant gate on this host (which has no jax):
+    ``python -m locust_tpu_torch.analysis --json`` must exit 0.  Logs the
+    rule count, the findings and the seconds; any failure raises."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "locust_tpu_torch.analysis", "--json"],
+                         cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"static analysis exited {out.returncode}: "
+                             f"{out.stdout[-4000:]}{out.stderr[-2000:]}")
+    res = json.loads(out.stdout)
+    row = {"rules": len(res["rules"]), "files": res["files"], "findings": res["total"],
+           "new": res["new"], "suppressed": res["suppressed"], "seconds": round(seconds, 3)}
+    log(f"  {row['rules']} rules over {row['files']} files: {row['findings']} findings "
+        f"({row['new']} new), {row['suppressed']} suppressed with a reason, "
+        f"{seconds:.3f} s (process included)")
+    return row
+
+
 def _run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
@@ -3042,6 +3063,9 @@ def main() -> int:
         smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
         log(f"nvidia-smi: {smi}")
         log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    with phase("static analysis: python -m locust_tpu_torch.analysis"):
+        analysis_phase()
 
     with phase("build kernels (nvcc) and the native reader (g++)"):
         shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)

@@ -247,7 +247,7 @@ class DistributedInvertedIndex:
         backlog = mesh.all_reduce(backlog, axis)
         drains = 0
         zero_local = KVBatch.empty(local.size, cfg.key_lanes, dev)
-        while int(backlog) > 0 and drains < self.max_drain_rounds:
+        while int(backlog) > 0 and drains < self.max_drain_rounds:  # locust: noqa[R003] the drain loop's condition, one read per round, equal on every rank (all-reduced): JAX's lax.while_loop (apps/inverted_index.py:293-310) is a host loop here
             acc, leftover, so, n_pairs, backlog = self._shuffle_round(zero_local, acc, leftover)
             shuf_ovf = shuf_ovf + so
             backlog = mesh.all_reduce(backlog, axis)

@@ -191,7 +191,7 @@ def _fold_tf_chunks(chunks, cfg, pairs_capacity, allow_overflow, prefetch: bool,
                 # The doc id rides an unsigned key lane; -1 would come
                 # back as 2**32-1, a different key than passed in.
                 raise ValueError(
-                    f"doc ids must be >= 0, got min {int(ids_chunk.min())}"
+                    f"doc ids must be >= 0, got min {int(ids_chunk.min())}"  # locust: noqa[R003] numpy doc ids on the host, read once for the error message before the raise
                 )
             rows_chunk = normalize_block(rows_chunk, bl, w)
             if ids_chunk.shape[0] < bl:

@@ -362,10 +362,14 @@ def _join_world(args, device):
         return []
     store = mesh_mod.coordinator_store(n)
     coordinator = f"127.0.0.1:{store.port}"
+    # Each rank imports this checkout's package, from whatever cwd.
+    pkg_parent = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (pkg_parent, os.environ.get("PYTHONPATH")) if p))
     children = [subprocess.Popen(
         [sys.executable, "-m", "locust_tpu_torch", *args.argv, "--coordinator", coordinator,
          "--num-processes", str(n), "--process-id", str(i)],
-        stdout=subprocess.DEVNULL, env=dict(os.environ)) for i in range(1, n)]
+        stdout=subprocess.DEVNULL, env=env) for i in range(1, n)]
     mesh_mod.initialize_multihost(coordinator, n, 0, device, store)
     return children
 

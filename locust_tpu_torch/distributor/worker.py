@@ -955,7 +955,7 @@ class Worker:
 
         lo, hi = distribute.shard_ranges(num_nodes, n_shards)[shard]
         with self._map_lock:  # one card: device steps serialize
-            new = pagerank_step(
+            new = pagerank_step(  # locust: noqa[R003] one read per plan_stage request, not per block: the stage's ranks go back over the wire as numpy
                 src_sub, dst_sub,
                 torch.from_numpy(ranks).to(self.device), inv_deg, dangling,
                 damping, num_nodes, grouping,

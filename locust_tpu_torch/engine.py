@@ -335,7 +335,7 @@ def _settle(device: torch.device) -> None:
     if device.type != "cuda":
         return
     try:
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # locust: noqa[R003] once per failed dispatch in the breaker's retry loop: the error the queued work reports belongs to that dispatch
     except RuntimeError as e:
         logger.warning("synchronize after the failed dispatch raised: %s", e)
 
@@ -402,7 +402,7 @@ class MapReduceEngine:
         sync per block.  The overflow is the kernel's either way."""
         if self._fused_kernel_on:
             ktab, kresid, overflow, flag = fused_block_preagg(lines, self.cfg)
-            if bool(flag):
+            if bool(flag):  # locust: noqa[R003] one flag read per block or segment under fused: JAX's lax.cond (engine.py:402, 460) is a host branch here
                 self._refolds += 1
                 kv, _ = self.map_fn(lines, self.cfg)
             else:
@@ -416,7 +416,7 @@ class MapReduceEngine:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # locust: noqa[R003] stage-timing boundary of timed_run (JAX engine.py:669-681): the sync IS the measurement
 
     def _fence(self, device: torch.device | None = None) -> torch.cuda.Event | None:
         """A CUDA event recorded on the current stream of ``device`` (the
@@ -649,7 +649,7 @@ class MapReduceEngine:
 
         def dispatch(n_filled: int, end: int) -> None:
             nonlocal acc, overflow, max_distinct, segments, stall_ms, last_mark
-            cur_np = cur.numpy()
+            cur_np = cur.numpy()  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
             cur_np[n_filled * bl:] = 0  # a partial segment's missing blocks
             # The span covers the copy and the fold's dispatch, not device
             # completion (that shows in the stream.stall events).
@@ -667,7 +667,7 @@ class MapReduceEngine:
                 t_sync = time.perf_counter()
                 ev = inflight.popleft()
                 if ev is not None:
-                    ev.synchronize()
+                    ev.synchronize()  # locust: noqa[R003] bounded-inflight backpressure (JAX engine.py:806, 914): waits on the fold STREAM_DISPATCH_DEPTH back, which frees its staging slot
                 sync_ms = (time.perf_counter() - t_sync) * 1e3
                 stall_ms += sync_ms
                 obs.event("stream.stall", block=end - 1, ms=round(sync_ms, 3))
@@ -683,7 +683,7 @@ class MapReduceEngine:
                     continue
                 if fill == 0:
                     cur = ring.next() if ring is not None else torch.zeros((seg * bl, w), dtype=torch.uint8)
-                normalize_block(blk, bl, w, out=cur.numpy()[fill * bl:(fill + 1) * bl])
+                normalize_block(blk, bl, w, out=cur.numpy()[fill * bl:(fill + 1) * bl])  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
                 fill += 1
                 if fill == seg:
                     dispatch(fill, i + 1)

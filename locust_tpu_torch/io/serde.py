@@ -99,7 +99,7 @@ def read_kvbin(path: str, key_width: int) -> tuple[np.ndarray, np.ndarray]:
     off = _KVB_HEADER.size
     lens = np.frombuffer(data, "<u2", count, off).astype(np.int64)
     off += 2 * count
-    if int(lens.sum()) != blob_len:
+    if int(lens.sum()) != blob_len:  # locust: noqa[R003] lens is host numpy read from the file: no device
         raise ValueError(f"{path!r}: KVB key lengths do not sum to the blob")
     blob = np.frombuffer(data, np.uint8, blob_len, off)
     off += blob_len

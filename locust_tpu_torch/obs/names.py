@@ -60,7 +60,7 @@ NAMES = {
     "backend.breaker_open": "event",       # breaker tripped: primary ineligible
     "backend.breaker_half_open": "event",  # cooldown over: one probe allowed
     "backend.breaker_close": "event",      # probe succeeded: primary restored
-    "backend.failover": "event",    # run resumed from checkpoint on fallback
+    "backend.failover": "event",    # locust: noqa[R009] kept so NAMES equals the JAX registry (traces interoperate); the port's breaker retries on the card after its cooldown and never fails over to the CPU
     # --- metrics ------------------------------------------------------
     "job.workers": "gauge",         # cluster size of the running job
     "stream.blocks": "counter",     # blocks folded by run_stream

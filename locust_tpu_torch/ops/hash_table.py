@@ -306,7 +306,7 @@ def aggregate_exact(
     )
     # The JAX package's lax.cond is a host branch here: one host read of
     # the unresolved count per fold (on CUDA a device sync).
-    n_unres = int(unresolved.sum(dtype=torch.int32))
+    n_unres = int(unresolved.sum(dtype=torch.int32))  # locust: noqa[R003] one read of the unresolved count per hasht fold: the JAX package's lax.cond is a host branch here
     if n_unres == 0:
         return table, used
     if n_unres <= RESIDUAL_CAP:

@@ -313,7 +313,7 @@ def gather_host_array(x: torch.Tensor, mesh: Mesh, axis: str | None = None) -> n
     concatenated in rank order, as host numpy on every rank.  bool
     tensors travel as uint8."""
     is_bool = x.dtype == torch.bool
-    out = mesh.all_gather(x.to(torch.uint8) if is_bool else x, axis).cpu().numpy()
+    out = mesh.all_gather(x.to(torch.uint8) if is_bool else x, axis).cpu().numpy()  # locust: noqa[R003] a loop reaches it only through a checkpoint snapshot: one host copy per checkpoint_every rounds, what the writer persists
     return out.astype(bool) if is_bool else out
 
 

@@ -220,7 +220,7 @@ class ShardedCheckpoint:
 
         def write():
             if ready is not None:
-                ready.synchronize()
+                ready.synchronize()  # locust: noqa[R003] runs in write() on the snapshot writer's thread, not in the round loop: waits for the snapshot copy's event
             self._write(next_round, _batch_to_host(snap[0], self.mesh),
                         _batch_to_host(snap[1], self.mesh), extras)
 

@@ -7,6 +7,8 @@ index's pair sort.  The port's configurations map through the tokenizer
 kernel's wrapper (``use_pallas=True``, its plain version here), the JAX
 package's through its plain tokenizer, as each package's apps run."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import dataclasses
 
 import jax.numpy as jnp
@@ -183,3 +185,29 @@ def test_entry_points_run_on_cuda_by_default(monkeypatch):
                  lambda: compile_plan(index_plan(2), tcfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_tfidf_and_pagerank_bits_do_not_depend_on_torch_threads():
+    """The port's tests run torch on one intra-op thread (torch_threads):
+    the tf-idf scores and PageRank's CPU ranks are the same bits at 1
+    and at 4 threads, so the pin hides no order-dependent sum."""
+    from locust_tpu_torch.apps.pagerank import pagerank
+
+    lines = _corpus(n_lines=3000, seed=9)
+    docs = np.arange(len(lines), dtype=np.int32) // 7
+    rng = np.random.default_rng(12)
+    n, e = 100_000, 1_000_000
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = (rng.zipf(1.5, e) % n).astype(np.int32)  # heavy rows, as on a web graph
+    got = {}
+    try:
+        for threads in (1, 4):
+            torch.set_num_threads(threads)
+            cfg = TConfig(sort_mode="bitonic", **dict(KW, block_lines=512))
+            got[threads] = (ttfidf.build_tfidf(lines, docs, cfg, pairs_capacity=1 << 15,
+                                               allow_overflow=True, device="cpu"),
+                            pagerank(src, dst, n, 5, 0.85, device="cpu").numpy().view(np.uint32))
+    finally:
+        torch.set_num_threads(1)
+    assert got[1][0] == got[4][0] and len(got[1][0]) > 1000
+    assert np.array_equal(got[1][1], got[4][1])

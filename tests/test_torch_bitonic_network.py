@@ -7,6 +7,8 @@ cross-tile passes run too; and against the stable plain version through
 per-key multisets.  The launch plan's simulator is in
 tests/test_torch_bitonic_plan.py."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import functools
 
 import jax

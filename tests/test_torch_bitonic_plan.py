@@ -7,6 +7,8 @@ kernel in tests/test_torch_bitonic_network.py), run every substage
 exactly once in the network's order, and launch ``1 + 2*(kbits - m)``
 times."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import functools
 
 import numpy as np

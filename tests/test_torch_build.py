@@ -7,6 +7,8 @@ pool and mesh phases have files of their own
 (tests/test_torch_build_serve.py, test_torch_build_pool.py,
 test_torch_build_mesh.py)."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 import shutil
 import subprocess
@@ -59,7 +61,7 @@ def test_chip_smoke_refuses_without_a_gpu_or_the_package(alone, tmp_path):
     if alone:
         script = str(tmp_path / "chip_smoke.py")
         shutil.copy(SMOKE, script)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(script))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(script), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, script], env=env, cwd=os.path.dirname(script),
         capture_output=True, text=True, timeout=120,
@@ -72,7 +74,7 @@ def test_chip_smoke_refuses_without_a_gpu_or_the_package(alone, tmp_path):
 def test_chip_mesh_refuses_without_a_gpu():
     """``chip_mesh.py``, the PageRank and mesh phases alone, exits 1 and
     runs nothing where no card is visible."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(SMOKE))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.dirname(SMOKE), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, os.path.join(os.path.dirname(SMOKE), "chip_mesh.py")],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 1 and out.stdout == ""

@@ -5,6 +5,8 @@ checkpointed world crashed at a snapshot by a fault plan and resumed,
 and ``--slices 2`` over 2 and 4 processes; every stdout the oracle's and
 every launch count summed over the processes as the phase predicts."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import functools
 import types
 

@@ -8,6 +8,8 @@ against the oracle; the compiled mesh WordCount plan under ``bitonic``
 and ``hasht``; and the sample sort in worlds of 1 and 2 against numpy's
 lexsort, with one retry of ``sort_strings``."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import dataclasses
 import functools
 import os

@@ -2,6 +2,8 @@
 small shapes, the plain versions counted as launches (split from
 tests/test_torch_build.py to keep each file under a minute)."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 from smoke_rig import rehearsal
 
 
@@ -17,6 +19,7 @@ def test_chip_smoke_pool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
 
     import torch
 
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # its processes share the host's cores
     smoke, by_path, run_cli = rehearsal(monkeypatch)
     bl = 128
     lines, _ = smoke.replicated_corpus(1 << 20)

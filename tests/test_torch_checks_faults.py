@@ -5,8 +5,11 @@
 corrupt batches, the plan parses, decides and mangles as JAX's does, and
 the single-device chaos cases of the JAX suite hold on the port."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import json
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -256,13 +259,16 @@ def test_chaos_async_ckpt_writer_crash_before_rename(tmp_path, stream_corpus):
 
 
 def test_chaos_async_ckpt_delayed_writer_lapped_generation(tmp_path, stream_corpus):
-    # Every publish stalls 1 s, far longer than the loop takes to fold
-    # all 12 blocks, even on a loaded machine: the loop laps the writer.
+    # Every publish stalls longer than the loop takes to fold all 12
+    # blocks: at least 1 s, and 3x this machine's measured fold of the
+    # same blocks, however loaded it is.  So the loop laps the writer.
     eng, cfg = _stream_engine()
+    t0 = time.perf_counter()
     want = dict(eng.run_stream(_blocks(stream_corpus, cfg)).to_host_pairs())
+    stall_s = max(1.0, 3.0 * (time.perf_counter() - t0))
     ck = str(tmp_path / "async_delay_ck")
     fp = _blocks(stream_corpus, cfg).fingerprint()
-    p = tfp.FaultPlan([{"site": "io.ckpt_write", "action": "delay", "delay_s": 1.0}], seed=7)
+    p = tfp.FaultPlan([{"site": "io.ckpt_write", "action": "delay", "delay_s": stall_s}], seed=7)
     with tfp.active_plan(p):
         res = eng.run_stream(_blocks(stream_corpus, cfg), checkpoint_dir=ck, every=1,
                              fingerprint=fp)

@@ -4,6 +4,8 @@ prints on stdout exactly the bytes that ``python -m locust_tpu FILE
 Both ``main(argv)`` run in-process.  The staged and streaming runs are in
 tests/test_torch_cli_staged.py."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import pytest

@@ -4,6 +4,8 @@ CPU with the same flags (both ``main`` in-process); the WordCount CLI
 through the compiled plan; ``--trace-out`` valid under both packages'
 schemas; and the exits of refused invocations."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import json
 import os
 

@@ -4,6 +4,8 @@ sort mode, the staged stages 1 and 2 (tsv and bin intermediates),
 intermediate files are the bytes ``python -m locust_tpu ... --backend
 cpu`` writes.  Both ``main(argv)`` run in-process."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import pytest
 
 from locust_tpu import cli as jcli

@@ -2,6 +2,8 @@
 plan, the no-jax import pin and the device rule, each held against the
 JAX package on the same seeded inputs.  Every comparison is exact."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 import subprocess
 import sys
@@ -209,7 +211,7 @@ def test_port_imports_neither_jax_nor_locust_tpu():
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=120,
@@ -233,7 +235,7 @@ def test_serve_control_plane_imports_without_torch():
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=120,

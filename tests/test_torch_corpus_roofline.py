@@ -4,6 +4,8 @@ JAX generator's; the JAX traffic model gives the JAX package's numbers
 for every sort mode; the least-bytes counts equal hand-worked numbers at
 ``[4096, 128]``; and ``summarize`` never reads above 100% of the peak."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import pytest
 
 from locust_tpu.io import corpus as jcorpus

@@ -10,6 +10,8 @@ the JSON plane for the same loopback WordCount, whose reduced table is
 the JAX one-shot CLI's bytes.
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import builtins
 import hashlib
 import os

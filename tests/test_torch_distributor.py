@@ -8,6 +8,8 @@ cpu``; every reduced table is the bytes of the JAX one-shot CLI on the
 same corpus.
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 import socket
 import struct
@@ -430,6 +432,7 @@ def test_master_cli_with_default_map_runner(corpus_file, tmp_path, capsysbinary,
     cluster.write_text("".join(f"{h} {p}\n" for h, p in (w.addr for w in workers)))
     trace = tmp_path / "job.trace.json"
     monkeypatch.setenv("LOCUST_SECRET", SECRET.decode())
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the map processes share the host's cores
     monkeypatch.setattr(master.tempfile, "gettempdir", lambda: str(tmp_path))
     try:
         capsysbinary.readouterr()

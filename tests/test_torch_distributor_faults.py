@@ -13,6 +13,8 @@ to the CPU, the port reloads its snapshot on the same device and waits
 for the half-open probe; both are oracle-exact and trip alike.
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import contextlib
 import os
 import threading

@@ -8,6 +8,8 @@ formats, and each reduced stdout is the JAX one-shot CLI's bytes; the
 two microbenches report the same keys.
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import contextlib
 import os
 import socket

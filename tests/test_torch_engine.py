@@ -5,6 +5,8 @@ equality; tables are compared bit for bit under the asserted
 precondition that no two distinct keys of the corpus share a folded sort
 key."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import numpy as np

@@ -13,6 +13,8 @@ holds because no two distinct keys of these corpora share a folded hash
 (asserted).
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,8 @@ not.  Then shape validation, the eligibility gates and their reasons, and
 The engine's tables against JAX's are in tests/test_torch_fused_engine.py.
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import jax.numpy as jnp

@@ -4,6 +4,8 @@ ladder, ``mxu_scatter_add``, the ``count`` refusal and the hasht-family
 ``fold_into``, held against ``locust_tpu/ops/hash_table.py`` bit for bit
 on the same numpy-seeded batches."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import collections
 
 import jax.numpy as jnp

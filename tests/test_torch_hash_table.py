@@ -6,6 +6,8 @@ same numpy-seeded batches (the ladder, ``mxu_scatter_add`` and
 compared bit for bit (no two distinct keys of a batch share a folded
 hash, asserted); the tolerance is exact."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import collections
 
 import jax.numpy as jnp

@@ -5,6 +5,8 @@ refusals), ``fingerprint_corpus``, npz tables read across packages,
 ``--auto-caps``, ``count_lines``, ``prefetch_blocks`` and the snapshot
 writer."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 import threading
 

@@ -4,6 +4,8 @@ interpret mode, on the sample corpus and a seeded fuzz of the hard lines
 (embedded NUL, CR/LF, tokens longer than key_width, more tokens than
 emits_per_line, a token touching the row's end).  Exact equality."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import jax.numpy as jnp

@@ -10,6 +10,8 @@ same size, including WordCount under ``hasht`` (the optimizer's fused
 rewrite, demoted on a CPU rank as on JAX's CPU mesh), the refusals of
 ``run_stream`` and of the tf fold, and the pod flags' validation."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 import subprocess
 import sys

@@ -8,6 +8,8 @@ warning, each as JAX raises and logs it.  In this process, a world of one
 against JAX's ``make_mesh(1)``: a checkpoint written by either package is
 resumed by the other, both ways, and folds exactly the rounds after it."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import numpy as np
 import pytest
 

@@ -11,6 +11,8 @@ adds, which the first test here finds.  ``_build_plan``'s arrays equal
 JAX's for worlds of 1 to 8, and a world of one equals JAX's
 ``make_mesh(1)`` in this process."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import jax
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ of a run of equal keys are compared as a multiset, since JAX's sorts are
 not stable and the port's are.  And ``core/packing.lanes_geq_table``
 against JAX's on random lanes and on keys sharing prefixes."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import numpy as np
 import pytest
 import torch

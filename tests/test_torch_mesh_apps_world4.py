@@ -6,6 +6,8 @@ ranks bit for bit; the distributed index over several rounds and over
 tiny bins; the sample sort of random and duplicate-heavy strings, with
 the overflow at each skew factor equal to JAX's."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import numpy as np
 import pytest
 

@@ -10,6 +10,8 @@ subprocess with 2 host devices), and only process 0 prints the table;
 the pod flags without ``--mesh`` and ``--mesh`` without a card are
 refused as JAX refuses them."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 import subprocess
 import sys
@@ -149,3 +151,30 @@ def test_refusals_equal_jax(capfdbinary, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out = _run(capfdbinary, tcli.main, [CORPUS, "--mesh"])
     assert rc == 1 and b"CUDA is not available" in out.err and out.out == b""
+
+
+def test_mesh_ranks_started_by_the_cli_import_this_checkout(monkeypatch, tmp_path):
+    """``--mesh`` alone on a host with several cards starts one process
+    per further card: each gets this checkout on PYTHONPATH, so it
+    imports the same package whatever directory the CLI ran from."""
+    from types import SimpleNamespace
+
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    started = []
+
+    class Proc:
+        def __init__(self, argv, stdout=None, env=None):
+            started.append((argv, env))
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(subprocess, "Popen", Proc)
+    monkeypatch.setattr(mesh_mod, "coordinator_store", lambda n: SimpleNamespace(port=1))
+    monkeypatch.setattr(mesh_mod, "initialize_multihost", lambda *a: None)
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path))
+    args = SimpleNamespace(coordinator=None, argv=["f.txt", "--mesh"])
+    children = tcli._join_world(args, torch.device("cuda"))
+    assert len(children) == 2 and len(started) == 2
+    for argv, env in started:
+        assert argv[1:3] == ["-m", "locust_tpu_torch"] and argv[-1] in ("1", "2")
+        assert env["PYTHONPATH"].split(os.pathsep) == [REPO, str(tmp_path)]

@@ -10,6 +10,8 @@ processes (tests/test_multiprocess.py::test_four_process_checkpoint_resume),
 ``LOCUST_DEBUG_CHECKS``' slice-replication check (passing, then firing
 on a doctored slice) and the mesh shape errors."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import numpy as np

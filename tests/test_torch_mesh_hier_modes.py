@@ -6,6 +6,8 @@ for bit.  JAX's CPU mesh sorts ``bitonic`` by its stock ``lax.sort`` and
 demotes ``fused`` to hasht; the port's CPU ranks take the plain versions
 and demote the same way."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import numpy as np
 import pytest
 

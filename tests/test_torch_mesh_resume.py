@@ -8,6 +8,8 @@ directory, then resumes the OTHER package's snapshots (``state.p0.npz``,
 exactly the remaining rounds to the oracle's table.  The world of one
 against JAX's ``make_mesh(1)`` is in tests/test_torch_mesh_units.py."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import torch_mesh_rig as rig

@@ -9,6 +9,8 @@ resumed across packages against JAX's ``make_mesh(1)`` both ways, kernel
 C's mesh caller run through its plain version (the CPU gate demotes it,
 as JAX's does), and the mesh's refusals."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import dataclasses
 import logging
 

@@ -18,6 +18,8 @@ corpora have no two keys sharing a folded sort key.  Only drop mode
 loses rows, and which ones depends on each package's order within a
 bin, so there only the loss count is compared."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import numpy as np
 import pytest
 

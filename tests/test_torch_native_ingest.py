@@ -6,6 +6,10 @@ yielded propagates; a failed build raises ``OSError``, never falls back.
 The reader is host code built with g++, so these tests build and run the
 real library on the CPU."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
+import time
+
 import numpy as np
 import pytest
 
@@ -19,6 +23,23 @@ from locust_tpu_torch.io import serde as tserde
 
 CORPUS = b"first line\nsecond, line\nthird-line\r\nfourth\nlast without newline"
 SLICES = [(-1, -1), (1, 3), (0, 2), (4, 99), (2, 2), (99, 200), (3, -1)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_reader_loaded():
+    """The JAX reader builds its library in place at first use (g++ -o
+    the final path), and a test file on another xdist worker may be
+    building it at this moment in a fresh checkout: a half-written file
+    fails to load ("file too short").  Wait until it loads."""
+    deadline = time.monotonic() + 120.0
+    while True:
+        try:
+            jnative._load()
+            return
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.5)
 
 
 @pytest.fixture

@@ -3,6 +3,8 @@ metrics and the schema against the JAX package's, the zero-overhead
 disabled path, and the engine's spans, events and metrics equal to the
 JAX engine's for one ``timed_run`` and one checkpointed ``run_stream``."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import collections
 import json
 import time

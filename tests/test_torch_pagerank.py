@@ -7,6 +7,8 @@ gather-add's grouping and node schedule, with a Python walk of the
 schedule as the CUDA kernel walks it (warp rows by chunks, then thread
 rows), bit for bit against the CSR walk and JAX's step."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,8 @@ four rewrite rules, identity-pinned; the sub-plan cache branch and
 ``SubPlanCache`` (entries and counters equal); every plan's rendered
 bytes, single-device and under ``mesh=True`` (the tf fold refused)."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import dataclasses
 import hashlib
 import random

@@ -7,8 +7,11 @@ WAL resume from stage records, the demotions to the solo engine, and the
 the port's solo engine and the JAX pool's under the same calls, on the
 CPU, PageRank bit for bit."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import dataclasses
 import os
+import threading
 import time
 
 import numpy as np
@@ -266,7 +269,10 @@ def test_wal_resume_from_stage_records(tmp_path, kind):
     """The daemon dies after the map wave (or PageRank's first epoch)
     journaled its stage records; a restart on the journal reuses the
     surviving partitions (``partitions_reused``) and answers what the
-    solo engine renders."""
+    solo engine renders.  The dead daemon is in this process: its next
+    stage RPCs are held until the restart has answered, as a killed
+    process would take no further step (a timed stall let it wake and
+    unlink the partitions under a restart slowed by load)."""
     if kind == "map":
         doc, corpus = tplan.tfidf_plan(2).to_doc(), CORPUS
         stall = {"phase": "reduce"}
@@ -275,23 +281,30 @@ def test_wal_resume_from_stage_records(tmp_path, kind):
         stall = {"phase": "iterate", "split": 2}
     mk = dict(journal_dir=str(tmp_path / "journal"), shard_min_blocks=1, max_queue=16,
               max_batch=4, dispatch_poll_s=0.02, retry_base_s=0.02)
+    killed = threading.Event()
     ws = start_workers("torch", 2)
     try:
         d, c = start("torch", workers=roster(ws), **mk)
-        rule = {"site": "plan.stage", "action": "delay", "delay_s": 20.0, "match": stall,
-                "times": 16}
+        stage_rpc = d._run_plan_stage_rpc
+
+        def held_at_the_stall(worker, req, phase):
+            if all((phase if k == "phase" else req.get(k)) == v for k, v in stall.items()):
+                killed.wait(timeout=300.0)
+                raise RuntimeError("a killed daemon takes no further step")
+            return stage_rpc(worker, req, phase)
+
+        d._run_plan_stage_rpc = held_at_the_stall
         try:
-            with tfaults.active_plan(tfaults.FaultPlan([rule], seed=11)):
-                ack = c.submit(corpus=corpus, config=CFG_OVR, plan=doc, no_cache=True)
-                deadline = time.monotonic() + 30.0
-                need = 2 if kind == "map" else 1
-                while True:
-                    with open(d.journal.path, "rb") as f:
-                        if f.read().count(b'"rec":"stage"') >= need:
-                            break
-                    assert time.monotonic() < deadline, "no stage record journaled"
-                    time.sleep(0.02)
-                abandon(d)
+            ack = c.submit(corpus=corpus, config=CFG_OVR, plan=doc, no_cache=True)
+            deadline = time.monotonic() + 30.0
+            need = 2 if kind == "map" else 1
+            while True:
+                with open(d.journal.path, "rb") as f:
+                    if f.read().count(b'"rec":"stage"') >= need:
+                        break
+                assert time.monotonic() < deadline, "no stage record journaled"
+                time.sleep(0.02)
+            abandon(d)
         finally:
             d.journal.close()
         d2, c2 = start("torch", workers=roster(ws), **mk)
@@ -303,6 +316,7 @@ def test_wal_resume_from_stage_records(tmp_path, kind):
         finally:
             d2.close()
     finally:
+        killed.set()
         stop_workers(ws)
 
 

@@ -5,6 +5,8 @@
 ``attributed_run`` annotates the Process-stage spans of its own run;
 the CLI's ``--profile-dir`` leaves a trace."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import contextlib
 import json
 import os

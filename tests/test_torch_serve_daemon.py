@@ -4,6 +4,8 @@ daemon and a port daemon (on the CPU) under the same config and the same
 submits.  Results, structured error codes, cache answers and every stats
 counter agree exactly, and the pairs equal the oracle."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import re
 import socket
 import time

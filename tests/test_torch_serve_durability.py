@@ -5,6 +5,8 @@ retry ladder (poison bisection, deadlines), journal failures and warm
 restarts — tests/test_serve.py:966-1350, each on the port's daemon (on
 the CPU) and, where the two must agree, on the JAX daemon too."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import hashlib
 import json
 import os
@@ -115,7 +117,7 @@ def test_sigkill_daemon_process_restart_replays_byte_identical(tmp_path):
     """The real thing: ``python -m locust_tpu_torch.serve`` is SIGKILL'd
     right behind its acks; a fresh daemon on the same journal answers
     every job exactly."""
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO,
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
            "LOCUST_SECRET": SECRET.decode()}
     jdir = tmp_path / "journal"
     corpora = (CORPUS_A, CORPUS_B, CORPUS_A + CORPUS_B)
@@ -373,7 +375,7 @@ def test_daemon_process_trace_out_records_the_serve_spans(tmp_path):
     is valid under the port's trace schema."""
     from locust_tpu_torch.obs.schema import validate_trace
 
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO,
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
            "LOCUST_SECRET": SECRET.decode()}
     trace = tmp_path / "serve.trace.json"
     proc = subprocess.Popen(

@@ -7,6 +7,8 @@ tie break, the client's ``promote``, and the ``serve.ship`` fault site.
 Each case runs a port pair on the CPU and, where the answers can be set
 side by side, a JAX pair under the same calls."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import time
 
 import pytest

@@ -4,6 +4,8 @@ distributor's protocol in both), and a journal or a warm directory
 written by one package's daemon replays in the other's — every answer
 exact against the oracle and the other package's."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import pytest
 from torch_serve_rig import (
     CFG_OVR,

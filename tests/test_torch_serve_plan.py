@@ -6,6 +6,8 @@ hit, bad plans and deterministic plan errors fail structured, the
 sub-plan cache counts as the JAX one does, and a journaled plan job
 replays after a kill -9."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import base64
 
 import pytest

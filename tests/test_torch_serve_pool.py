@@ -5,6 +5,8 @@ workers, affinity repeats, and the ``serve.place`` fault site.  Each case
 runs the same calls through a JAX pool and a port pool (on the CPU) and
 holds the answers equal, the pairs to the oracle and the one-shot CLI."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import time
 
 import pytest

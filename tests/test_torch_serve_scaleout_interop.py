@@ -7,6 +7,9 @@ package.  What crosses the packages is state and wire: journals, epoch
 files, corpus spills, partition files.  Every answer equals the one the
 daemon's own package gives over its own workers, on the CPU."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
+import threading
 import time
 
 import pytest
@@ -28,15 +31,12 @@ from torch_serve_rig import (
 )
 
 from locust_tpu.serve import ServeClient as JClient
-from locust_tpu.utils import faultplan as jfaults
 from locust_tpu_torch import plan as tplan
 from locust_tpu_torch.config import EngineConfig
 from locust_tpu_torch.plan.compile import compile_plan
 from locust_tpu_torch.serve import ServeClient as TClient
-from locust_tpu_torch.utils import faultplan as tfaults
 
 CLIENTS = {"jax": JClient, "torch": TClient}
-FAULTS = {"jax": jfaults, "torch": tfaults}
 OTHER = {"jax": "torch", "torch": "jax"}
 CORPUS = CORPUS_A + CORPUS_B
 EDGES = b"0 1\n1 2\n2 0\n0 2\n3 1\n2 3\n" * 3
@@ -118,28 +118,37 @@ def test_stage_records_replay_in_the_other_package(tmp_path, writer):
     journaled its stage records; a daemon of the other package restarts
     on the journal (over the same workers), reuses the surviving
     partitions and answers the solo engine's bytes under the original
-    id."""
+    id.  The dead daemon is in this process: until the other has
+    answered, its reduce wave is held, as a killed process would be.  (A
+    timed stall let it wake, fail on its closed journal and unlink the
+    map wave's partitions before a reader slowed by load checked them.)"""
     reader = OTHER[writer]
     doc = tplan.tfidf_plan(2).to_doc()
     mk = dict(journal_dir=str(tmp_path / "journal"), shard_min_blocks=1, max_queue=16,
               max_batch=4, dispatch_poll_s=0.02, retry_base_s=0.02)
+    killed = threading.Event()
     ws = start_workers("torch", 1) + start_workers("jax", 1)
     try:
         d, c = start(writer, workers=roster(ws), **mk)
-        fp = FAULTS[writer]
-        rule = {"site": "plan.stage", "action": "delay", "delay_s": 20.0,
-                "match": {"phase": "reduce"}, "times": 8}
+        stage_rpc = d._run_plan_stage_rpc
+
+        def held_past_the_map_wave(worker, req, phase):
+            if phase != "map":
+                killed.wait(timeout=300.0)
+                raise RuntimeError("a killed daemon takes no further step")
+            return stage_rpc(worker, req, phase)
+
+        d._run_plan_stage_rpc = held_past_the_map_wave
         try:
-            with fp.active_plan(fp.FaultPlan([rule], seed=11)):
-                ack = c.submit(corpus=CORPUS, config=CFG_OVR, plan=doc, no_cache=True)
-                deadline = time.monotonic() + 30.0
-                while True:
-                    with open(d.journal.path, "rb") as f:
-                        if f.read().count(b'"rec":"stage"') >= 2:
-                            break
-                    assert time.monotonic() < deadline, "no stage records journaled"
-                    time.sleep(0.02)
-                abandon(d)
+            ack = c.submit(corpus=CORPUS, config=CFG_OVR, plan=doc, no_cache=True)
+            deadline = time.monotonic() + 30.0
+            while True:
+                with open(d.journal.path, "rb") as f:
+                    if f.read().count(b'"rec":"stage"') >= 2:
+                        break
+                assert time.monotonic() < deadline, "no stage records journaled"
+                time.sleep(0.02)
+            abandon(d)
         finally:
             d.journal.close()
         d2, c2 = start(reader, workers=roster(ws), **mk)
@@ -153,4 +162,5 @@ def test_stage_records_replay_in_the_other_package(tmp_path, writer):
         finally:
             d2.close()
     finally:
+        killed.set()
         stop_workers(ws)

@@ -4,6 +4,8 @@ scheduler's order and stats, the bucket ladder and line counter, the
 executable / result / sub-plan caches' counters, ``merge_shard_results``,
 and ``stage_batch`` + ``run_batch``'s demux per sort mode."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import base64
 import dataclasses
 import random
@@ -79,6 +81,12 @@ def test_parse_spec_rejects_with_the_jax_code(req):
 
     j, t = both(code)
     assert t == j and t in tjobs.ERROR_CODES
+
+
+def test_parse_spec_names_an_unknown_workload():
+    with pytest.raises(ValueError) as e:
+        tjobs.parse_spec({"workload": "nope", **GOOD})
+    assert str(e.value).partition("\n")[0] == "unknown_workload"
 
 
 def test_parse_spec_corpus_cap_and_path(tmp_path):

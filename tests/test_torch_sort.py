@@ -6,6 +6,8 @@ differently (the kernel is not stable), so payload rows are compared as
 per-key multisets, and tables where no two distinct keys share a folded
 key (asserted)."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import jax

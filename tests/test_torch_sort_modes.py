@@ -17,6 +17,8 @@ Bit-identity of tables holds because no two distinct keys of these
 corpora share a folded sort key (asserted).
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import jax

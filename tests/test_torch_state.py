@@ -4,6 +4,8 @@ continues from that table, and the answer is JAX's whole run; a table
 smaller than the corpus's distinct keys truncates exactly as in JAX.
 Exact equality throughout."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import numpy as np

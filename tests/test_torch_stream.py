@@ -13,6 +13,8 @@ interpret-mode kernel would cost this file a minute.  No two distinct
 keys of the corpus share a folded hash (tests/test_torch_engine.py).
 """
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import os
 
 import numpy as np

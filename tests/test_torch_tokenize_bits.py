@@ -14,6 +14,8 @@ Pallas tokenizer's in interpret mode where JAX takes the shape (widths a
 multiple of 128, 64-line blocks).  The writer must cover every key byte
 once and read no byte past the row buffer."""
 
+import torch_threads  # noqa: F401 - first: one torch thread per test process
+
 import functools
 
 import jax.numpy as jnp
