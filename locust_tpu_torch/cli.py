@@ -36,7 +36,8 @@ world of one in this process on a host with one card, and on a host
 with more the CLI starts the other ranks itself.
 ``--trace-out FILE`` exports the run's spans and metrics as a
 Chrome-trace timeline; ``--profile-dir DIR`` captures a ``torch.profiler``
-trace of the run into DIR.  ``--fault-plan`` (or ``$LOCUST_FAULT_PLAN``)
+trace of the run into DIR, with each span as a range of its name when
+both are given.  ``--fault-plan`` (or ``$LOCUST_FAULT_PLAN``)
 installs a seeded fault plan (utils/faultplan.py) before any checkpoint
 is written.  ``pagerank``, ``index`` and ``tfidf`` as the
 first argument select the subcommands of cli_apps.py.
@@ -116,7 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "$LOCUST_FAULT_PLAN); no cost when unset")
     p.add_argument("--profile-dir", default=None,
                    help="capture a torch.profiler trace of the run (CPU ops, CUDA kernels) "
-                        "into this directory as a Chrome-trace JSON")
+                        "into this directory as a Chrome-trace JSON; with --trace-out, "
+                        "each span is a range of its name there")
     p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (default cuda; there is no silent "
                         "fallback to the CPU)")
@@ -170,7 +172,10 @@ def main(argv=None) -> int:
         print(f"mapreduce: error: {e}", file=sys.stderr)
         return 1
     if args.trace_out:
-        obs.enable(process="cli")
+        # With --profile-dir as well, each span also opens a profiler range
+        # of its name: the profiler's export shows the spans over the
+        # kernels they launched.
+        obs.enable(process="cli").profiler_ranges = bool(args.profile_dir)
     from locust_tpu_torch.utils import faultplan
 
     plan = None

@@ -27,7 +27,15 @@ The engine runs on CUDA unless the caller asks for the CPU
 the JAX engine's telemetry (``obs``; off unless enabled, e.g. by
 ``EngineConfig(trace=True)``): the ``engine.stage.*`` spans of
 ``timed_run``, and ``stream.block``, ``stream.stall`` and ``ckpt.mark``
-with their metrics in ``run_stream`` and ``run_checkpointed``.
+with their metrics in ``run_stream`` and ``run_checkpointed``.  The port
+adds spans inside the fold: ``engine.stage_blocks`` (``prepare_blocks``;
+in ``run_stream`` each block's pad into the staging ring),
+``engine.fold.block`` (one block of ``run``, ``run_blocks``,
+``run_batch``), ``engine.fold.map`` (``fold_block``; the sort and reduce
+spans are ``ops/hash_table.py``'s) and ``engine.fold.drain`` (each fold
+runner's final wait for the card), and the ``engine.host_syncs`` counter:
+every host read of a fold's tensors and every explicit wait, counted on
+any device so the CPU's count is the card's.
 """
 
 from __future__ import annotations
@@ -400,23 +408,33 @@ class MapReduceEngine:
         set, the block is re-folded through the stock path instead, as
         the JAX engine's ``lax.cond`` does; reading the flag is one host
         sync per block.  The overflow is the kernel's either way."""
-        if self._fused_kernel_on:
-            ktab, kresid, overflow, flag = fused_block_preagg(lines, self.cfg)
-            if bool(flag):  # locust: noqa[R003] one flag read per block or segment under fused: JAX's lax.cond (engine.py:402, 460) is a host branch here
-                self._refolds += 1
-                kv, _ = self.map_fn(lines, self.cfg)
+        with obs.span("engine.fold.map"):
+            if self._fused_kernel_on:
+                ktab, kresid, overflow, flag = fused_block_preagg(lines, self.cfg)
+                obs.metric_inc("engine.host_syncs")
+                if bool(flag):  # locust: noqa[R003] one flag read per block or segment under fused: JAX's lax.cond (engine.py:402, 460) is a host branch here
+                    self._refolds += 1
+                    kv, _ = self.map_fn(lines, self.cfg)
+                else:
+                    kv = KVBatch.concat(ktab, kresid)
             else:
-                kv = KVBatch.concat(ktab, kresid)
-        else:
-            kv, overflow = self.map_fn(lines, self.cfg)
+                kv, overflow = self.map_fn(lines, self.cfg)
         merged, distinct = fold_into(
             acc, kv, self._table_size, self._combine, self.cfg.sort_mode
         )
         return merged, overflow, distinct
 
     def _sync(self) -> None:
+        obs.metric_inc("engine.host_syncs")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # locust: noqa[R003] stage-timing boundary of timed_run (JAX engine.py:669-681): the sync IS the measurement
+
+    @staticmethod
+    def _read_counters(*counters) -> list[int]:
+        """The fold's device counters read on the host: a sync each on the
+        card, counted in ``engine.host_syncs`` on any device."""
+        obs.metric_inc("engine.host_syncs", len(counters))
+        return [int(c) for c in counters]
 
     def _fence(self, device: torch.device | None = None) -> torch.cuda.Event | None:
         """A CUDA event recorded on the current stream of ``device`` (the
@@ -463,10 +481,11 @@ class MapReduceEngine:
         self._refolds = 0
         overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         max_distinct = torch.zeros((), dtype=torch.int32, device=self.device)
-        for blk in blocks:
-            acc, blk_overflow, distinct = self.fold_block(acc, blk)
-            overflow = overflow + blk_overflow
-            max_distinct = torch.maximum(max_distinct, distinct)
+        for i, blk in enumerate(blocks):
+            with obs.span("engine.fold.block", i=i):
+                acc, blk_overflow, distinct = self.fold_block(acc, blk)
+                overflow = overflow + blk_overflow
+                max_distinct = torch.maximum(max_distinct, distinct)
         return acc, max_distinct, overflow
 
     def run(self, rows: np.ndarray, acc: KVBatch | None = None) -> RunResult:
@@ -475,10 +494,11 @@ class MapReduceEngine:
         example one folded by the JAX package, state.table_from_jax)."""
         t0 = time.perf_counter()
         acc, num, overflow = self._fold_all(self._blocks(rows), acc)
-        self._sync()
+        with obs.span("engine.fold.drain"):
+            self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3
-        return self._finish(acc, num, int(overflow), StageTimes(0, total_ms, 0),
-                            self._refolds)
+        num, overflow = self._read_counters(num, overflow)
+        return self._finish(acc, num, overflow, StageTimes(0, total_ms, 0), self._refolds)
 
     def prepare_blocks(self, rows: np.ndarray) -> torch.Tensor:
         """Pad + reshape host rows into device-resident
@@ -486,18 +506,19 @@ class MapReduceEngine:
         bl, w = self.cfg.block_lines, self.cfg.line_width
         n = rows.shape[0]
         nblocks = max(1, -(-n // bl))
-        padded = np.zeros((nblocks * bl, w), dtype=np.uint8)
-        padded[:n] = rows[:, :w]
-        return torch.from_numpy(padded.reshape(nblocks, bl, w)).to(self.device)
+        with obs.span("engine.stage_blocks"):
+            padded = np.zeros((nblocks * bl, w), dtype=np.uint8)
+            padded[:n] = rows[:, :w]
+            return torch.from_numpy(padded.reshape(nblocks, bl, w)).to(self.device)
 
     def run_blocks(self, blocks: torch.Tensor, acc: KVBatch | None = None) -> RunResult:
         """Run over pre-staged ``[nblocks, block_lines, width]`` blocks."""
         t0 = time.perf_counter()
         acc, num, overflow = self._fold_all(blocks, acc)
-        num = int(num)  # host sync: every fold is done
+        with obs.span("engine.fold.drain"):
+            num, overflow = self._read_counters(num, overflow)  # every fold is done
         total_ms = (time.perf_counter() - t0) * 1e3
-        return self._finish(acc, num, int(overflow), StageTimes(0, total_ms, 0),
-                            self._refolds)
+        return self._finish(acc, num, overflow, StageTimes(0, total_ms, 0), self._refolds)
 
     def run_fused(self, rows: np.ndarray) -> RunResult:
         """Whole-corpus run over blocks staged to the device in one copy."""
@@ -517,7 +538,10 @@ class MapReduceEngine:
             folds.append((acc, num, overflow, self._refolds))
         # One host sync: the whole batch is done.
         counters = [torch.stack([num, overflow]) for _, num, overflow, _ in folds]
-        counters = torch.stack(counters).cpu().tolist() if counters else []
+        if counters:
+            with obs.span("engine.fold.drain"):
+                obs.metric_inc("engine.host_syncs")
+                counters = torch.stack(counters).cpu().tolist()
         total_ms = (time.perf_counter() - t0) * 1e3
         return [
             self._finish(acc, num, overflow, StageTimes(0, total_ms, 0), refolds)
@@ -564,8 +588,8 @@ class MapReduceEngine:
             times.map_ms += (t1 - t0) * 1e3
             times.process_ms += (t2 - t1) * 1e3 + (t4 - t3) * 1e3
             times.reduce_ms += (t3 - t2) * 1e3
-            overflow += int(blk_overflow)
-        return self._finish(acc, max_distinct, overflow, times)
+            overflow += self._read_counters(blk_overflow)[0]
+        return self._finish(acc, self._read_counters(max_distinct)[0], overflow, times)
 
     def run_lines(self, lines: Sequence[bytes]) -> RunResult:
         return self.run(self.rows_from_lines(lines))
@@ -666,6 +690,7 @@ class MapReduceEngine:
                 # frees its staging slot for reuse (_StagingRing).
                 t_sync = time.perf_counter()
                 ev = inflight.popleft()
+                obs.metric_inc("engine.host_syncs")  # the wait, on any device
                 if ev is not None:
                     ev.synchronize()  # locust: noqa[R003] bounded-inflight backpressure (JAX engine.py:806, 914): waits on the fold STREAM_DISPATCH_DEPTH back, which frees its staging slot
                 sync_ms = (time.perf_counter() - t_sync) * 1e3
@@ -681,9 +706,10 @@ class MapReduceEngine:
             for i, blk in enumerate(blocks):
                 if i < start_block:  # resume: re-read, don't re-fold
                     continue
-                if fill == 0:
-                    cur = ring.next() if ring is not None else torch.zeros((seg * bl, w), dtype=torch.uint8)
-                normalize_block(blk, bl, w, out=cur.numpy()[fill * bl:(fill + 1) * bl])  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
+                with obs.span("engine.stage_blocks"):
+                    if fill == 0:
+                        cur = ring.next() if ring is not None else torch.zeros((seg * bl, w), dtype=torch.uint8)
+                    normalize_block(blk, bl, w, out=cur.numpy()[fill * bl:(fill + 1) * bl])  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
                 fill += 1
                 if fill == seg:
                     dispatch(fill, i + 1)
@@ -698,8 +724,10 @@ class MapReduceEngine:
         finally:
             if pump is not None:
                 pump.close()
-        self._sync()
+        with obs.span("engine.fold.drain"):
+            self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3
+        num, overflow = self._read_counters(max_distinct, overflow)
         obs.metric_inc("stream.blocks", max(0, i + 1 - start_block))
         stream = {
             "blocks": max(0, i + 1 - start_block),
@@ -718,7 +746,7 @@ class MapReduceEngine:
         if pump is not None:
             stream["ckpt"] = dict(pump.stats(), every=every, final_flush_ms=round(flush_ms, 3))
         return self._finish(
-            acc, max_distinct, int(overflow), StageTimes(0, total_ms, 0), self._refolds,
+            acc, num, overflow, StageTimes(0, total_ms, 0), self._refolds,
             stream=stream, fused_kernel="stream" if segmented else None,
         )
 
@@ -850,10 +878,11 @@ class MapReduceEngine:
                 start_block, overflow, max_distinct, acc = load()
         finally:
             pump.close()
-        self._sync()
+        with obs.span("engine.fold.drain"):
+            self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3
-        return self._finish(acc, max_distinct, int(overflow), StageTimes(0, total_ms, 0),
-                            self._refolds)
+        num, overflow = self._read_counters(max_distinct, overflow)
+        return self._finish(acc, num, overflow, StageTimes(0, total_ms, 0), self._refolds)
 
     def _finish(self, acc, num_segments, overflow, times, refolds: int = 0,
                 stream: dict | None = None, fused_kernel: str | None = None) -> RunResult:

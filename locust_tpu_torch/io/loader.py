@@ -21,6 +21,7 @@ import threading
 
 import numpy as np
 
+from locust_tpu_torch import obs
 from locust_tpu_torch.config import FULL_DELIMITERS
 from locust_tpu_torch.core import bytes_ops
 from locust_tpu_torch.io import native_ingest
@@ -151,7 +152,12 @@ def prefetch_blocks(blocks, depth: int = 2):
     Abandoning the generator (``close()``, or the consumer raising) stops
     the reader: its puts poll a stop event, and the generator's
     ``finally`` sets it and drains the queue, so no thread or staged block
-    outlives the consumer."""
+    outlives the consumer.
+
+    Telemetry: the reader records each pull from the source as a
+    ``stream.read`` span (the one that finds the end included); the
+    consumer records ``stream.wait`` only when it finds the queue empty,
+    so a block that is ready costs no span."""
     q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     end = object()
     stop = threading.Event()
@@ -165,11 +171,21 @@ def prefetch_blocks(blocks, depth: int = 2):
                 continue
         return False
 
+    # The reader records into the consumer's tracer (a scoped one, or
+    # none where the consumer's telemetry is masked).
+    tracer = obs.current()
+
     def reader():
         try:
-            for b in blocks:
-                if not put_or_stop(b):
-                    return
+            with obs.scoped(tracer):
+                source = iter(blocks)
+                while True:
+                    with obs.span("stream.read"):
+                        b = next(source, end)
+                    if b is end:
+                        break
+                    if not put_or_stop(b):
+                        return
             put_or_stop(end)
         except BaseException as e:  # noqa: BLE001 - relayed to the consumer
             put_or_stop(_PrefetchError(e))
@@ -178,7 +194,11 @@ def prefetch_blocks(blocks, depth: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item = q.get_nowait()
+            except queue.Empty:
+                with obs.span("stream.wait"):
+                    item = q.get()
             if item is end:
                 return
             if isinstance(item, _PrefetchError):

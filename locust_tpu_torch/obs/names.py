@@ -2,9 +2,11 @@
 metric the framework can emit, in ONE dict literal.
 
 Port of ``locust_tpu/obs/names.py``, copied whole: the two packages
-share one vocabulary, so a timeline of either reads the same.  Names
-that only the JAX package's distributor, serve and mesh tiers emit stay
-registered for when those tiers are ported.
+share one vocabulary, so a timeline of either reads the same.  Every
+JAX name keeps its kind here.  The port adds one section of its own, at
+the end of the dict: spans inside the fold and the reader thread, and
+the host-sync counter, which the JAX package (one traced ``lax.scan``
+per fold) has no place for.
 
 Closed-registry stance (same as ``faultplan.SITES`` and the analysis rule
 table): a typo'd name at an emission site must fail LOUDLY — at runtime
@@ -60,7 +62,7 @@ NAMES = {
     "backend.breaker_open": "event",       # breaker tripped: primary ineligible
     "backend.breaker_half_open": "event",  # cooldown over: one probe allowed
     "backend.breaker_close": "event",      # probe succeeded: primary restored
-    "backend.failover": "event",    # locust: noqa[R009] kept so NAMES equals the JAX registry (traces interoperate); the port's breaker retries on the card after its cooldown and never fails over to the CPU
+    "backend.failover": "event",    # locust: noqa[R009] kept so every JAX name is registered (traces interoperate); the port's breaker retries on the card after its cooldown and never fails over to the CPU
     # --- metrics ------------------------------------------------------
     "job.workers": "gauge",         # cluster size of the running job
     "stream.blocks": "counter",     # blocks folded by run_stream
@@ -86,6 +88,16 @@ NAMES = {
     "plan.subcache_misses": "counter",  # ... and fold recomputes paid
     "plan.solo_fallbacks": "counter",   # plan jobs demoted to the solo engine
     "plan.map_warm_hits": "counter",    # map stages on warm fold-node executables
+    # --- port only: inside the fold and the reader thread -------------
+    "engine.stage_blocks": "span",  # pad host rows for the card: prepare_blocks (+ the copy), run_stream's ring
+    "engine.fold.block": "span",    # _fold_all: one block's whole fold dispatch
+    "engine.fold.map": "span",      # fold_block: map_fn, or kernel C + its flag read
+    "engine.fold.sort": "span",     # fold_into: concat(table, block) + sort_and_compact
+    "engine.fold.reduce": "span",   # fold_into: segment_reduce_into, or aggregate_exact
+    "engine.fold.drain": "span",    # a fold runner's final wait for the card
+    "stream.read": "span",          # prefetch_blocks' reader: one next() of the source
+    "stream.wait": "span",          # prefetch_blocks' consumer: blocked on an empty queue
+    "engine.host_syncs": "counter", # host reads of fold tensors + explicit waits
 }
 
 METRIC_KINDS = ("counter", "gauge", "histogram")

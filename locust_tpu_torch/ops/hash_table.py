@@ -29,13 +29,17 @@ table is a function of the batch's distinct keys and their totals alone.
 
 uint32 arithmetic is done in int64 masked to 32 bits (core/packing.py),
 and every boolean selection is a ``where`` into a dump row, so the fold
-adds no host sync but the ladder's one read of the unresolved count.
+adds no host sync but the ladder's one read of the unresolved count
+(counted in ``engine.host_syncs``).  A fold records its grouping as the
+``engine.fold.sort`` span (the sort modes only) and its reduction as
+``engine.fold.reduce``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from locust_tpu_torch import obs
 from locust_tpu_torch.config import HASHT_FAMILY, HASHT_PROBES
 from locust_tpu_torch.core import packing
 from locust_tpu_torch.core.kv import KVBatch
@@ -306,6 +310,7 @@ def aggregate_exact(
     )
     # The JAX package's lax.cond is a host branch here: one host read of
     # the unresolved count per fold (on CUDA a device sync).
+    obs.metric_inc("engine.host_syncs")
     n_unres = int(unresolved.sum(dtype=torch.int32))  # locust: noqa[R003] one read of the unresolved count per hasht fold: the JAX package's lax.cond is a host branch here
     if n_unres == 0:
         return table, used
@@ -343,6 +348,7 @@ def combine_or_passthrough(
     table, used, unresolved = hash_aggregate(
         batch, N, combine, probes=probes, scatter_impl=scatter_impl
     )
+    obs.metric_inc("engine.host_syncs")
     if int(unresolved.sum(dtype=torch.int32)) == 0:
         return table
     rank_t = torch.cumsum(table.valid.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -361,16 +367,35 @@ def combine_or_passthrough(
     return KVBatch(lanes[:N], vals[:N], valid[:N])
 
 
+def _fold(
+    acc: KVBatch | None, batch: KVBatch, out_size: int, combine: str, sort_mode: str
+) -> tuple[KVBatch, torch.Tensor]:
+    """Reduce ``concat(acc, batch)`` (``batch`` alone when ``acc`` is
+    None) into a bounded ``out_size`` table; returns ``(table,
+    num_segments)``.  The one place a fold picks sort or hasht.  The
+    concat counts to the sort; the hasht family has no sort and counts it
+    to the reduce."""
+
+    def rows() -> KVBatch:
+        return batch if acc is None else KVBatch.concat(acc, batch)
+
+    if sort_mode in HASHT_FAMILY:
+        with obs.span("engine.fold.reduce"):
+            return aggregate_exact(
+                rows(), out_size, combine, scatter_impl=scatter_impl_for(sort_mode)
+            )
+    with obs.span("engine.fold.sort"):
+        grouped = sort_and_compact(rows(), sort_mode)
+    with obs.span("engine.fold.reduce"):
+        return segment_reduce_into(grouped, out_size, combine)
+
+
 def reduce_into(
     batch: KVBatch, out_size: int, combine: str, sort_mode: str
 ) -> tuple[KVBatch, torch.Tensor]:
     """Reduce ``batch`` into a bounded ``out_size`` table; returns
-    ``(table, num_segments)``.  The one place a fold picks sort or hasht."""
-    if sort_mode in HASHT_FAMILY:
-        return aggregate_exact(
-            batch, out_size, combine, scatter_impl=scatter_impl_for(sort_mode)
-        )
-    return segment_reduce_into(sort_and_compact(batch, sort_mode), out_size, combine)
+    ``(table, num_segments)``."""
+    return _fold(None, batch, out_size, combine, sort_mode)
 
 
 def fold_into(
@@ -381,4 +406,4 @@ def fold_into(
     rebuilds the table from ``concat(acc, batch)`` each fold, as the JAX
     package does (its incremental mode lets stranded keys gather duplicate
     rows fold after fold)."""
-    return reduce_into(KVBatch.concat(acc, batch), out_size, combine, sort_mode)
+    return _fold(acc, batch, out_size, combine, sort_mode)

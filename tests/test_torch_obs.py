@@ -1,7 +1,8 @@
 """PyTorch port, telemetry (``locust_tpu_torch.obs``): the tracer, the
-metrics and the schema against the JAX package's, the zero-overhead
-disabled path, and the engine's spans, events and metrics equal to the
-JAX engine's for one ``timed_run`` and one checkpointed ``run_stream``."""
+metrics and the schema against the JAX package's, the tracer's clock and
+parents, the zero-overhead disabled path, and the engine's spans, events
+and metrics equal to the JAX engine's for one ``timed_run`` and one
+checkpointed ``run_stream`` (the port's own names counted apart)."""
 
 import torch_threads  # noqa: F401 - first: one torch thread per test process
 
@@ -24,6 +25,13 @@ from locust_tpu_torch.engine import MapReduceEngine as TEngine
 from locust_tpu_torch.obs import names as tnames
 from locust_tpu_torch.obs.schema import validate_trace
 
+# The port's own section of the registry (obs/names.py), which JAX lacks.
+PORT_ONLY = {
+    "engine.stage_blocks": "span", "engine.fold.block": "span", "engine.fold.map": "span",
+    "engine.fold.sort": "span", "engine.fold.reduce": "span", "engine.fold.drain": "span",
+    "stream.read": "span", "stream.wait": "span", "engine.host_syncs": "counter",
+}
+
 KW = dict(block_lines=64, line_width=128, key_width=16, emits_per_line=8, sort_mode="hash")
 LINES = [b"alpha beta gamma delta", b"beta gamma", b"epsilon alpha alpha zeta"] * 70
 
@@ -38,7 +46,11 @@ def _telemetry_off():
 
 
 def test_registry_is_the_jax_registry():
-    assert tnames.NAMES == jnames.NAMES
+    """Every JAX name is the port's with its kind; the port adds exactly
+    its own section."""
+    assert {k: tnames.NAMES.get(k) for k in jnames.NAMES} == jnames.NAMES
+    assert {k: v for k, v in tnames.NAMES.items() if k not in jnames.NAMES} == PORT_ONLY
+    assert list(tnames.NAMES)[-len(PORT_ONLY):] == list(PORT_ONLY)
     assert tnames.METRIC_KINDS == jnames.METRIC_KINDS
 
 
@@ -106,10 +118,87 @@ def test_closed_registry_ingest_and_scoping():
     with obs.scoped(None):
         assert obs.span("cli.run") is obs.span("cli.load") is obs.trace.NULL_SPAN
     assert t.ingest(w.serialize(), offset_s=2.0, process="worker a") == 1
-    assert t.ingest([{"ph": "X"}, "junk"]) == 0
+    assert t.ingest([{"ph": "X"}, "junk", {"ph": "X", "ts": float("nan"), "dur": 1.0},
+                     {"ph": "X", "ts": 1.0, "dur": "long"}]) == 0
     merged = [e for e in t.to_chrome()["traceEvents"] if e["name"] == "worker.map"]
     assert len(merged) == 1 and merged[0]["pid"] != 0
     assert obs.summary()["metrics"]["counters"] == {}
+
+
+def test_spans_carry_their_parent_per_thread():
+    """A span names the innermost span open on its own thread when it
+    opened; a root span names none; another thread's spans are roots."""
+    import threading
+
+    t = obs.enable()
+    with obs.span("cli.run"):
+        with obs.span("engine.fold.block", i=0):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+            with obs.span("engine.fold.map"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+                pass
+            with obs.span("engine.fold.sort"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+                pass
+        th = threading.Thread(target=lambda: obs.span("stream.read").__enter__().__exit__())  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+        th.start()
+        th.join(timeout=10)
+    got = {name: args.get("parent") for name, _, _, _, args in t.spans()}
+    assert got == {"engine.fold.map": "engine.fold.block", "engine.fold.sort": "engine.fold.block",
+                   "engine.fold.block": "cli.run", "stream.read": None, "cli.run": None}
+    doc = t.to_chrome()
+    validate_trace(doc)
+    jvalidate(doc)
+
+
+def test_clock_is_perf_counter_and_exports_through_the_anchor():
+    """Spans are stamped on ``perf_counter`` (the accessor's seconds lie
+    inside the caller's own readings, in order); the export maps them to
+    epoch microseconds through the one anchor pair, and a tracer that
+    ingests the serialized list reads the same times back."""
+    import threading
+
+    t = obs.enable(process="unit")
+    p0, e0 = time.perf_counter(), time.time()
+    for i in range(5):
+        with obs.span("engine.fold.block", i=i):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+            pass
+    p1, e1 = time.perf_counter(), time.time()
+    spans = t.spans()
+    assert [a["i"] for _, _, _, _, a in spans] == list(range(5))
+    assert all(p0 <= s0 <= s1 <= p1 for _, s0, s1, _, _ in spans)
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))  # monotonic
+    assert t.spans(thread=threading.get_ident()) == spans
+    assert t.spans(thread=-1) == []
+    doc = t.to_chrome()
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    for (_, s0, s1, _, _), e in zip(spans, xs):
+        want = (s0 - t._anchor_perf_ns / 1e9) * 1e6 + t._anchor_epoch_ns / 1e3
+        assert abs(e["ts"] - want) < 1 and abs(e["dur"] - (s1 - s0) * 1e6) < 0.11
+        assert e0 * 1e6 - 2e3 <= e["ts"] <= e1 * 1e6 + 2e3
+    validate_trace(doc)
+    jvalidate(doc)
+    other = obs.Tracer(process="master")
+    assert other.ingest(t.serialize(), offset_s=0.0, process="unit") == 5
+    back = [e for e in other.to_chrome()["traceEvents"] if e["ph"] == "X"]
+    assert [(round(e["ts"]), e["dur"]) for e in back] == [(round(e["ts"]), e["dur"]) for e in xs]
+
+
+@pytest.mark.parametrize("ranges", [False, True])
+def test_profiler_ranges_put_the_spans_in_the_profilers_export(ranges, tmp_path):
+    """With ``profiler_ranges`` each span is also a profiler range of its
+    name; without it the profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = obs.enable()
+    t.profiler_ranges = ranges
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("engine.fold.block", i=0):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+            with obs.span("engine.fold.sort"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+                torch.sort(torch.arange(64).flip(0))
+    prof.export_chrome_trace(str(tmp_path / "p.json"))
+    events = json.load(open(tmp_path / "p.json"))["traceEvents"]
+    names = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    spans = {"engine.fold.block", "engine.fold.sort"}
+    assert names & spans == (spans if ranges else set())
+    assert [n for n, *_ in t.spans()] == ["engine.fold.sort", "engine.fold.block"]
 
 
 def test_span_syncs_cuda_refs_at_exit_only(monkeypatch):
@@ -131,16 +220,29 @@ def test_disabled_path_allocates_nothing_and_costs_little():
     assert obs.current() is None
     s = obs.span("stream.block", i=0)
     assert s is obs.span("engine.stage.map") is obs.trace.NULL_SPAN
+    assert obs.span("engine.fold.block", i=0) is obs.span("stream.read") is obs.trace.NULL_SPAN  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
     assert obs.event("stream.stall", ms=0.0) is None
     assert obs.metric_inc("stream.blocks") is None
+    assert obs.metric_inc("engine.host_syncs") is None  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
     assert obs.export("unused") is None and obs.metrics_snapshot() == {}
     n = 20_000
     t0 = time.perf_counter()
     for i in range(n):
+        # What one block of the fold and the stream emits.
         with obs.span("stream.block", i=i, staging="ring"):
+            pass
+        with obs.span("engine.fold.block", i=i):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+            with obs.span("engine.fold.map"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+                pass
+            with obs.span("engine.fold.sort"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+                pass
+            with obs.span("engine.fold.reduce"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
+                pass
+        with obs.span("stream.read"):  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
             pass
         obs.event("stream.stall", block=i, ms=0.0)
         obs.metric_inc("stream.blocks")
+        obs.metric_inc("engine.host_syncs")  # locust: noqa[R009] a port-only name (locust_tpu_torch/obs/names.py), not in the JAX registry this rule reads
         obs.metric_observe("stream.stall_ms", 0.0)
     per_block_s = (time.perf_counter() - t0) / n
     eng = TEngine(TConfig(**KW), device="cpu")
@@ -151,8 +253,9 @@ def test_disabled_path_allocates_nothing_and_costs_little():
     assert per_block_s < 50e-6 and per_block_s / fold_s < 0.05, (per_block_s, fold_s)
 
 
-def _recorded(pkg_obs, run) -> dict:
-    """{name: count} of the spans, events and metrics ``run`` records."""
+def _recorded(pkg_obs, run, port_only: dict | None = None) -> dict:
+    """{name: count} of the spans, events and metrics ``run`` records
+    under JAX-registered names; the port's own names go to ``port_only``."""
     t = pkg_obs.enable()
     run()
     doc = t.to_chrome(pkg_obs.metrics_snapshot())
@@ -161,6 +264,10 @@ def _recorded(pkg_obs, run) -> dict:
     names.update({f"metric {k}": v for k, v in m["counters"].items()})
     names.update({f"metric {k}": h["count"] for k, h in m["histograms"].items()})
     pkg_obs.disable()
+    own = {k: names.pop(k) for k in list(names)
+           if k.removeprefix("metric ") in PORT_ONLY}
+    if port_only is not None:
+        port_only.update(own)
     return dict(names)
 
 
@@ -173,9 +280,14 @@ def test_timed_run_records_the_jax_engine_spans(engines):
     jeng, teng = engines
     rows = teng.rows_from_lines(LINES)  # 210 lines: 4 blocks
     want = _recorded(jobs, lambda: jeng.timed_run(rows))
-    got = _recorded(obs, lambda: teng.timed_run(rows))
+    own = {}
+    got = _recorded(obs, lambda: teng.timed_run(rows), own)
     assert got == want
     assert got["engine.stage.merge"] == 4
+    # Its stages call the sort and reduce themselves, so no fold span; per
+    # block 4 stage syncs and the overflow's read, at the end the
+    # distinct count's.
+    assert own == {"metric engine.host_syncs": 4 * 5 + 1}
 
 
 @pytest.mark.parametrize("async_ckpt", [False, True])
@@ -192,8 +304,9 @@ def test_run_stream_records_the_jax_engine_spans_and_events(engines, tmp_path, a
     kw = dict(every=3, fingerprint="f")
     want = _recorded(jobs, lambda: jeng.run_stream(iter(blocks), checkpoint_dir=str(tmp_path / "j"), **kw))
     res = []
+    own = {}
     got = _recorded(obs, lambda: res.append(
-        teng.run_stream(iter(blocks), checkpoint_dir=str(tmp_path / "t"), **kw)))
+        teng.run_stream(iter(blocks), checkpoint_dir=str(tmp_path / "t"), **kw)), own)
     if async_ckpt:
         writer = {k: got.pop(k, 0) for k in ("ckpt.write", "ckpt.publish", "ckpt.skip")}
         for k in ("ckpt.write", "ckpt.publish", "ckpt.skip"):
@@ -204,6 +317,14 @@ def test_run_stream_records_the_jax_engine_spans_and_events(engines, tmp_path, a
     assert got == want
     assert got["stream.block"] == 8 and got["stream.stall"] == 4 and got["ckpt.mark"] == 3
     assert got["metric stream.blocks"] == 8 and got["metric ckpt.marks"] == 3
+    # The port's own: 8 blocks staged and folded, the reader's 8 pulls and
+    # the one that finds the end, at most as many waits; 4 backpressure
+    # waits, the closing sync and the two counters' reads.
+    waits = own.pop("stream.wait", 0)
+    assert 0 <= waits <= 9
+    assert own == {"engine.stage_blocks": 8, "engine.fold.map": 8, "engine.fold.sort": 8,
+                   "engine.fold.reduce": 8, "engine.fold.drain": 1, "stream.read": 9,
+                   "metric engine.host_syncs": 4 + 1 + 2}
 
 
 def test_engine_config_trace_enables_the_process_tracer():
