@@ -36,11 +36,19 @@ spans are ``ops/hash_table.py``'s) and ``engine.fold.drain`` (each fold
 runner's final wait for the card), and the ``engine.host_syncs`` counter:
 every host read of a fold's tensors and every explicit wait, counted on
 any device so the CPU's count is the card's.
+
+Where ``fold_graph.eligible`` allows (a CUDA device, the ``bitonic``
+fold, the WordCount map through kernel A), ``_fold_all`` and
+``run_stream`` fold each block by one replay of a CUDA graph of the
+block's fold (fold_graph.py); there the map, sort and reduce spans are
+not opened, and ``engine.fold.graph_replays`` counts the replays.
+``timed_run``, ``run_checkpointed`` and every other fold stay eager.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -52,7 +60,7 @@ import numpy as np
 import torch
 
 from locust_tpu_torch import backend as backend_mod
-from locust_tpu_torch import obs
+from locust_tpu_torch import fold_graph, obs
 from locust_tpu_torch.config import (
     DEFAULT_CONFIG,
     HASHT_FAMILY,
@@ -272,11 +280,12 @@ class _CheckpointPump:
             save_snapshot(self._path, acc, next_block, overflow, max_distinct, self._fp)
             self._sync_writes += 1
         else:
-            # The counters are new tensors every fold: references do.
+            # Clones: under the fold graph the table and the counters are
+            # buffers that the next folds write in place.
             snap = KVBatch(acc.key_lanes.clone(), acc.values.clone(), acc.valid.clone())
             self._writer.submit(next_block, functools.partial(
                 _write_marked, self._eng._fence(acc.values.device), self._path, snap, next_block,
-                overflow, max_distinct, self._fp))
+                overflow.clone(), max_distinct.clone(), self._fp))
         self.mark_ms += (time.perf_counter() - t0) * 1e3
 
     def finish(self) -> float:
@@ -392,6 +401,13 @@ class MapReduceEngine:
                 self._fused_stream_seg = fused_stream_seg_blocks(
                     cfg.emits_per_block, cfg.block_lines, self.device.type == "cuda"
                 )
+        # _fold_all and _run_stream fold through a CUDA graph of the
+        # block's fold (fold_graph.py) where the fold allows one; every
+        # other runner, and every other fold, is eager.
+        ok, why = fold_graph.eligible(cfg, map_fn, self.device)
+        self._graph_key = fold_graph.graph_key(cfg, combine, self.device) if ok else None
+        if not ok:
+            logger.info("fold graph not engaged — %s", why)
 
     # ---------------------------------------------------------------- stages
 
@@ -452,6 +468,15 @@ class MapReduceEngine:
         page-locked memory."""
         return host.to(self.device, non_blocking=host.is_pinned())
 
+    def _fold_graph(self, acc: KVBatch | None):
+        """A fold graph held for one run that starts from ``acc``, or a
+        null context (None) where the fold runs eagerly: off the graph's
+        rule, or from a table of another size."""
+        if self._graph_key is None or (acc is not None and acc.size != self._table_size):
+            return contextlib.nullcontext()
+        return fold_graph.GRAPHS.hold(self._graph_key, lambda: fold_graph.FoldGraph(
+            self.cfg, self.map_fn, self._combine, self.device))
+
     def empty_table(self) -> KVBatch:
         return KVBatch.empty(self._table_size, self.cfg.key_lanes, self.device)
 
@@ -476,9 +501,17 @@ class MapReduceEngine:
 
     def _fold_all(self, blocks, acc: KVBatch | None):
         """Fold every block into ``acc`` (an empty table when None); the
-        counters stay on the device until the caller reads them."""
-        acc = self.empty_table() if acc is None else acc
+        counters stay on the device until the caller reads them.  Through
+        the fold graph where it engages: one replay a block."""
         self._refolds = 0
+        with self._fold_graph(acc) as graph:
+            if graph is not None:
+                graph.start(acc)
+                for i, blk in enumerate(blocks):
+                    with obs.span("engine.fold.block", i=i):
+                        graph.fold(blk)
+                return graph.result()
+        acc = self.empty_table() if acc is None else acc
         overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         max_distinct = torch.zeros((), dtype=torch.int32, device=self.device)
         for i, blk in enumerate(blocks):
@@ -680,9 +713,13 @@ class MapReduceEngine:
             span_args = {"seg_blocks": n_filled} if segmented else {}
             with obs.span("stream.block", i=end - 1,
                           staging="ring" if ring is not None else "alloc", **span_args):
-                acc, seg_overflow, distinct = self.fold_block(acc, self._to_device(cur))
-            overflow = overflow + seg_overflow
-            max_distinct = torch.maximum(max_distinct, distinct)
+                if graph is None:
+                    acc, seg_overflow, distinct = self.fold_block(acc, self._to_device(cur))
+                else:
+                    graph.fold(cur)  # acc and the counters are its buffers
+            if graph is None:
+                overflow = overflow + seg_overflow
+                max_distinct = torch.maximum(max_distinct, distinct)
             segments += 1
             inflight.append(self._fence())
             if len(inflight) > self.STREAM_DISPATCH_DEPTH:
@@ -702,28 +739,34 @@ class MapReduceEngine:
                 pump.mark(acc, end, overflow, max_distinct)
                 last_mark = end
 
-        try:
-            for i, blk in enumerate(blocks):
-                if i < start_block:  # resume: re-read, don't re-fold
-                    continue
-                with obs.span("engine.stage_blocks"):
-                    if fill == 0:
-                        cur = ring.next() if ring is not None else torch.zeros((seg * bl, w), dtype=torch.uint8)
-                    normalize_block(blk, bl, w, out=cur.numpy()[fill * bl:(fill + 1) * bl])  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
-                fill += 1
-                if fill == seg:
+        with self._fold_graph(acc) as graph:
+            if graph is not None:
+                graph.start(acc, overflow, max_distinct)
+                acc, overflow, max_distinct = graph.table, graph.overflow, graph.max_distinct
+            try:
+                for i, blk in enumerate(blocks):
+                    if i < start_block:  # resume: re-read, don't re-fold
+                        continue
+                    with obs.span("engine.stage_blocks"):
+                        if fill == 0:
+                            cur = ring.next() if ring is not None else torch.zeros((seg * bl, w), dtype=torch.uint8)
+                        normalize_block(blk, bl, w, out=cur.numpy()[fill * bl:(fill + 1) * bl])  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
+                    fill += 1
+                    if fill == seg:
+                        dispatch(fill, i + 1)
+                        fill = 0
+                if fill:
                     dispatch(fill, i + 1)
-                    fill = 0
-            if fill:
-                dispatch(fill, i + 1)
-            # The final generation, unless the cadence just wrote it.
-            if pump is not None and i + 1 > last_mark:
-                pump.mark(acc, i + 1, overflow, max_distinct)
-            if pump is not None:
-                flush_ms = pump.finish()  # durable before returning
-        finally:
-            if pump is not None:
-                pump.close()
+                # The final generation, unless the cadence just wrote it.
+                if pump is not None and i + 1 > last_mark:
+                    pump.mark(acc, i + 1, overflow, max_distinct)
+                if pump is not None:
+                    flush_ms = pump.finish()  # durable before returning
+            finally:
+                if pump is not None:
+                    pump.close()
+            if graph is not None:
+                acc, max_distinct, overflow = graph.result()
         with obs.span("engine.fold.drain"):
             self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3

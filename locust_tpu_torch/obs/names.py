@@ -98,6 +98,9 @@ NAMES = {
     "stream.read": "span",          # prefetch_blocks' reader: one next() of the source
     "stream.wait": "span",          # prefetch_blocks' consumer: blocked on an empty queue
     "engine.host_syncs": "counter", # host reads of fold tensors + explicit waits
+    "engine.fold.capture": "span",  # fold_graph: one block's fold warmed up and captured
+    "engine.fold.graph_captures": "counter",  # fold graphs captured
+    "engine.fold.graph_replays": "counter",   # blocks folded by a fold graph's replay
 }
 
 METRIC_KINDS = ("counter", "gauge", "histogram")

@@ -58,11 +58,15 @@ def _segment(values, ids, size, reduce: str) -> torch.Tensor:
 
 
 def segment_reduce_into(
-    batch: KVBatch, out_size: int, combine: str = "sum"
+    batch: KVBatch, out_size: int, combine: str = "sum", out: KVBatch | None = None
 ) -> tuple[KVBatch, torch.Tensor]:
     """Segment-combine a key-grouped batch into a compact ``out_size``
     table.  Returns ``(table, num_segments)``; ``num_segments`` is the TRUE
-    distinct-key count (int32 scalar), which may exceed ``out_size``."""
+    distinct-key count (int32 scalar), which may exceed ``out_size``.
+
+    With ``out`` (an ``out_size``-row table that ``batch`` does not
+    alias), the table is written into ``out``'s tensors and ``out`` is
+    returned: the fold graph (fold_graph.py) chains its table so."""
     if combine not in COMBINERS:
         raise ValueError(f"combine must be one of {COMBINERS}, got {combine!r}")
     lanes, values, valid = batch.key_lanes, batch.values, batch.valid
@@ -90,17 +94,16 @@ def segment_reduce_into(
     start = _segment(
         torch.arange(n, dtype=torch.int32, device=dev), start_ids, out_size + 1, "amin"
     )[:out_size]
-    out_valid = torch.arange(out_size, dtype=torch.int32, device=dev) < num_segments
+    o_lanes, o_values, o_valid = (None,) * 3 if out is None else (
+        out.key_lanes, out.values, out.valid)
+    out_valid = torch.lt(torch.arange(out_size, dtype=torch.int32, device=dev), num_segments,
+                         out=o_valid)
     safe_start = torch.where(out_valid, start, 0).long()
-    out_lanes = lanes[safe_start] * out_valid[:, None].to(lanes.dtype)
-    return (
-        KVBatch(
-            key_lanes=out_lanes,
-            values=torch.where(out_valid, combined, 0),
-            valid=out_valid,
-        ),
-        num_segments,
-    )
+    out_lanes = torch.mul(lanes[safe_start], out_valid[:, None].to(lanes.dtype), out=o_lanes)
+    out_values = torch.where(out_valid, combined, 0)
+    if o_values is not None:  # where() takes no out= with a scalar
+        out_values = o_values.copy_(out_values)
+    return KVBatch(key_lanes=out_lanes, values=out_values, valid=out_valid), num_segments
 
 
 def segment_reduce(batch: KVBatch, combine: str = "sum") -> KVBatch:

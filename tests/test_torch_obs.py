@@ -30,6 +30,8 @@ PORT_ONLY = {
     "engine.stage_blocks": "span", "engine.fold.block": "span", "engine.fold.map": "span",
     "engine.fold.sort": "span", "engine.fold.reduce": "span", "engine.fold.drain": "span",
     "stream.read": "span", "stream.wait": "span", "engine.host_syncs": "counter",
+    "engine.fold.capture": "span", "engine.fold.graph_captures": "counter",
+    "engine.fold.graph_replays": "counter",
 }
 
 KW = dict(block_lines=64, line_width=128, key_width=16, emits_per_line=8, sort_mode="hash")
