@@ -48,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from locust_tpu_torch import obs
 from locust_tpu_torch.engine import resolve_device
 from locust_tpu_torch.ops.kernels.pagerank import Grouping, gather_add, in_edges
 from locust_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
@@ -76,6 +77,18 @@ def _xla_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _edges(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+
+
+def edge_column(a):
+    """An edge column as a plan's ``edges`` source hands it on: a tensor
+    as it is, on its device (a graph held on the card never goes through
+    the host), anything else as a numpy array."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _host_column(a) -> np.ndarray:
+    """An edge column on the host, for the mesh's routing plan."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def pagerank_prep(src, num_nodes: int, device=None):
@@ -126,15 +139,23 @@ def pagerank(src, dst, num_nodes: int, num_iters: int = 20,
     """Single-device PageRank over edge arrays ``[E]`` (numpy or tensors):
     ``num_iters`` damped power iterations from uniform ranks; float32
     ranks ``[num_nodes]`` on the device.  Pass valid edges only (no
-    padding).  Runs on CUDA unless ``device`` says otherwise."""
+    padding).  Runs on CUDA unless ``device`` says otherwise.  With the
+    tracer on, spans ``pagerank.prep``, ``pagerank.grouping`` and one
+    ``pagerank.iteration`` a step, and the counter
+    ``pagerank.iterations``; no span adds a wait for the card."""
     dev = resolve_device(device)
     s, d = _edges(src, dev), _edges(dst, dev)
-    inv_deg, dangling = pagerank_prep(s, num_nodes, dev)
-    grouping = pagerank_grouping(s, d, num_nodes, dev)
+    with obs.span("pagerank.prep"):
+        inv_deg, dangling = pagerank_prep(s, num_nodes, dev)
+    # Ends at the grouping's own read of its warp-row count.
+    with obs.span("pagerank.grouping"):
+        grouping = pagerank_grouping(s, d, num_nodes, dev)
     damping = torch.tensor(damping, dtype=torch.float32, device=dev)
     ranks = torch.full((num_nodes,), 1.0 / num_nodes, dtype=torch.float32, device=dev)
     for _ in range(num_iters):
-        ranks = pagerank_step(s, d, ranks, inv_deg, dangling, damping, num_nodes, grouping)
+        with obs.span("pagerank.iteration"):
+            ranks = pagerank_step(s, d, ranks, inv_deg, dangling, damping, num_nodes, grouping)
+        obs.metric_inc("pagerank.iterations")
     return ranks
 
 
@@ -328,13 +349,14 @@ class ShardedPageRank:
         recv = in_edges(_edges(keep, dev), _edges(rmap[keep], dev), self.npd, num_src=n_slots)
         return send, recv
 
-    def run(self, src: np.ndarray, dst: np.ndarray, num_iters: int = 20) -> np.ndarray:
+    def run(self, src, dst, num_iters: int = 20) -> np.ndarray:
         """Float32 ranks ``[num_nodes]`` as host numpy, gathered onto every
-        rank."""
+        rank; the edges numpy arrays or tensors on any device."""
         from locust_tpu_torch.parallel.mesh import gather_host_array
 
         n_dev, npd, num, mesh = self.n_dev, self.npd, self.num_nodes, self.mesh
         dev, d = mesh.device, mesh.rank
+        src, dst = _host_column(src), _host_column(dst)
         plan = self._build_plan(src, dst)
         cap = plan["cap"]
 

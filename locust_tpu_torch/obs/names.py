@@ -4,9 +4,9 @@ metric the framework can emit, in ONE dict literal.
 Port of ``locust_tpu/obs/names.py``, copied whole: the two packages
 share one vocabulary, so a timeline of either reads the same.  Every
 JAX name keeps its kind here.  The port adds one section of its own, at
-the end of the dict: spans inside the fold and the reader thread, and
-the host-sync counter, which the JAX package (one traced ``lax.scan``
-per fold) has no place for.
+the end of the dict: spans inside the fold, the reader thread and
+PageRank's job, and the host-sync and iteration counters, which the JAX
+package (one traced ``lax.scan`` per fold) has no place for.
 
 Closed-registry stance (same as ``faultplan.SITES`` and the analysis rule
 table): a typo'd name at an emission site must fail LOUDLY — at runtime
@@ -101,6 +101,10 @@ NAMES = {
     "engine.fold.capture": "span",  # fold_graph: one block's fold warmed up and captured
     "engine.fold.graph_captures": "counter",  # fold graphs captured
     "engine.fold.graph_replays": "counter",   # blocks folded by a fold graph's replay
+    "pagerank.prep": "span",        # apps.pagerank: the out-degrees and dangling mask
+    "pagerank.grouping": "span",    # apps.pagerank: the in-edge grouping, to its warp-row count read
+    "pagerank.iteration": "span",   # apps.pagerank: one pagerank_step on the host
+    "pagerank.iterations": "counter",  # pagerank_step calls of pagerank()
 }
 
 METRIC_KINDS = ("counter", "gauge", "histogram")

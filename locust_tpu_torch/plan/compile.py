@@ -225,7 +225,8 @@ class CompiledPlan:
 
         ``data`` feeds the source node(s): a rows array / list of line
         bytes for a text source, an ``(src, dst)`` edge-array pair for
-        an edges source, or a ``{input_name: data}`` dict when sources
+        an edges source (numpy arrays, or tensors, which stay on their
+        device), or a ``{input_name: data}`` dict when sources
         name distinct inputs (``source`` param ``input``; default
         ``"corpus"``).  ``timed`` routes the wordcount fold through
         ``timed_run`` (the reference's stage report); ``checkpoint_dir``
@@ -421,8 +422,10 @@ class _RunCtx:
     def _eval_source(self, n: Node):
         data = self._source_data(n)
         if n.op == "edges":
+            from locust_tpu_torch.apps.pagerank import edge_column
+
             src, dst = data
-            return np.asarray(src), np.asarray(dst)
+            return edge_column(src), edge_column(dst)
         from locust_tpu_torch.core import bytes_ops
 
         cfg = self.cp.cfg

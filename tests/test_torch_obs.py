@@ -32,6 +32,8 @@ PORT_ONLY = {
     "stream.read": "span", "stream.wait": "span", "engine.host_syncs": "counter",
     "engine.fold.capture": "span", "engine.fold.graph_captures": "counter",
     "engine.fold.graph_replays": "counter",
+    "pagerank.prep": "span", "pagerank.grouping": "span", "pagerank.iteration": "span",
+    "pagerank.iterations": "counter",
 }
 
 KW = dict(block_lines=64, line_width=128, key_width=16, emits_per_line=8, sort_mode="hash")
