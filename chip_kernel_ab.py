@@ -13,7 +13,13 @@ path's shapes (the CLI's defaults: a 4,096-line block of 128-byte rows of
 ``data/sample_corpus.txt``, 20 emits, 32-byte keys), and ``gather_add`` at
 web-Google's scale (``chip_smoke.synthetic_web_graph``: 875,713 nodes,
 5,105,039 edges), on the same graph with ``dst`` redrawn uniformly (seed
-21) and on its rows of more than 1,024 in-edges alone, each through its checkout's own ``pagerank_grouping`` and held
+21), on its rows of more than 1,024 in-edges alone, at a world of 2's
+send-slot and receive shapes over it (rank 0 of ``ShardedPageRank``'s
+two sums, sources and rows two index spaces; the receive sum
+unweighted) and on a Graph500 Kronecker graph of SCALE 24 made on the
+card (``benchmark/graph.py`` with ``benchmark/configs/
+pagerank-graph500-s24.json``'s graph, seed 2000000024: 16,777,216 nodes,
+536,870,912 arcs), each through its checkout's own groupings and held
 bit for bit against the CPU's ``index_add_`` (which adds in edge order):
 wall time (CUDA events around 200 back-to-back calls, host dispatch
 included) and, from ``torch.profiler``, the device ops per call, their
@@ -34,7 +40,10 @@ import sys
 
 KERNELS = {"tokenize": "tokenize_kernel", "fused_fold": "fused_preagg_kernel",
            "pagerank_web": "gather_add_kernel", "pagerank_uniform": "gather_add_kernel",
-           "pagerank_long_rows": "gather_add_kernel"}
+           "pagerank_long_rows": "gather_add_kernel", "pagerank_send_w2": "gather_add_kernel",
+           "pagerank_receive_w2": "gather_add_kernel", "pagerank_g500s24": "gather_add_kernel"}
+# The SCALE-24 graph's seed.
+G500_SEED = 2_000_000_024
 
 
 def _child(root: str) -> dict:
@@ -75,12 +84,39 @@ def _child(root: str) -> dict:
     return out
 
 
+def _gather_case(smoke, torch, name, grouping, ranks, inv_deg, init, want, edges) -> dict:
+    """One gather-add shape: the kernel's totals against ``want`` (the
+    CPU's, on the card), then its wall time, its device ops and their
+    time, its own, and ``index_add_``'s device time over the same
+    ``edges`` (``(src, dst)`` on the card)."""
+    from locust_tpu_torch.ops.kernels.pagerank import gather_add
+
+    n = grouping.schedule.shape[0]
+
+    def kernel():
+        return gather_add(init, *grouping, ranks, inv_deg)
+
+    if not torch.equal(kernel(), want):
+        raise AssertionError(f"{name}: the gather-add differs from the CPU's index_add_")
+    wall = smoke.cuda_ms(torch, kernel, reps=200, warmup=20)
+    ops, total, own = smoke.call_profile(torch, kernel, KERNELS[name])
+    s_t, d_t = edges
+    lib = smoke.device_ms(torch, lambda: init.expand(n).clone().index_add_(
+        0, d_t, ranks[s_t] * inv_deg[s_t] if inv_deg is not None else ranks[s_t]))
+    return {"wall_ms": wall, "device_ops_per_call": ops, "device_ms": total,
+            "kernel_device_ms": own, "index_add_device_ms": lib,
+            "max_in_degree": int((grouping.offsets[1] - grouping.offsets[0]).item()) if n else 0}
+
+
 def _pagerank(smoke, torch, np) -> dict:
-    """The gather-add at web-Google's scale and with uniform destinations."""
+    """The gather-add at web-Google's scale, with uniform destinations,
+    on the long rows, at a world of 2's slot shapes and at SCALE 24."""
     import time
 
-    from locust_tpu_torch.apps.pagerank import pagerank, pagerank_grouping, pagerank_prep
+    from locust_tpu_torch.apps.pagerank import (ShardedPageRank, pagerank, pagerank_grouping,
+                                                pagerank_prep)
     from locust_tpu_torch.ops.kernels.pagerank import gather_add
+    from locust_tpu_torch.parallel.mesh import Mesh
 
     dev = torch.device("cuda")
     n, src, dst = smoke.synthetic_web_graph()
@@ -103,20 +139,30 @@ def _pagerank(smoke, torch, np) -> dict:
         grouping = pagerank_grouping(s_t, d_t, n, dev)
         torch.cuda.synchronize()
         build_ms = (time.perf_counter() - t0) * 1e3
-
-        def kernel():
-            return gather_add(init, *grouping, ranks, inv_deg)
-
-        if not torch.equal(kernel(), want):
-            raise AssertionError(f"{name}: the gather-add differs from the CPU's index_add_")
-        wall = smoke.cuda_ms(torch, kernel, reps=200, warmup=20)
-        ops, total, own = smoke.call_profile(torch, kernel, KERNELS[name])
-        lib = smoke.device_ms(torch, lambda: init.expand(n).clone().index_add_(
-            0, d_t, ranks[s_t] * inv_deg[s_t]))
-        out[name] = {"wall_ms": wall, "device_ops_per_call": ops, "device_ms": total,
-                     "kernel_device_ms": own, "index_add_device_ms": lib,
-                     "grouping_build_ms": build_ms,
-                     "max_in_degree": int(np.bincount(d, minlength=n).max())}
+        out[name] = _gather_case(smoke, torch, name, grouping, ranks, inv_deg, init, want,
+                                 (s_t, d_t))
+        out[name]["grouping_build_ms"] = build_ms
+    # A world of 2's two sums on rank 0: the send sum (local nodes into
+    # send slots) and the unweighted receive sum (received slots into
+    # local nodes), against the CPU wrapper over the same grouping.
+    sp = ShardedPageRank(Mesh(0, 2, ("data",), (2,), {"data": None}, dev, "gloo"), n)
+    plan = sp._build_plan(src, dst)
+    send_g, recv_g = sp.groupings(plan)
+    rng = np.random.default_rng(5)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for name, g, r, i in (
+            ("pagerank_send_w2", send_g, rng.random(sp.npd).astype(np.float32) / n,
+             (1.0 / rng.integers(1, 9, sp.npd)).astype(np.float32)),
+            ("pagerank_receive_w2", recv_g,
+             rng.random(2 * plan["cap"]).astype(np.float32) / n, None)):
+        r = torch.from_numpy(r)
+        i = None if i is None else torch.from_numpy(i)
+        want = gather_add(zero.cpu(), *(t.cpu() for t in g[:3]), g.warp_rows, r, i).to(dev)
+        d_t = torch.repeat_interleave(g.schedule.long(), (g.offsets[1:] - g.offsets[:-1]).long())
+        out[name] = _gather_case(smoke, torch, name, g, r.to(dev),
+                                 None if i is None else i.to(dev), zero, want,
+                                 (g.src_by_dst.long(), d_t))
+    out.update(_pagerank_g500(smoke, torch, np))
     # End to end: ``pagerank``'s 20 iterations at the web graph, median of 3.
     pagerank(src, dst, n, 1, device=dev)
     runs = []
@@ -127,6 +173,35 @@ def _pagerank(smoke, torch, np) -> dict:
         runs.append(time.perf_counter() - t0)
     out["pagerank_web"]["iters_per_s"] = 20 / float(np.median(runs))
     return out
+
+
+def _pagerank_g500(smoke, torch, np) -> dict:
+    """The gather-add over the benchmark's SCALE-24 Kronecker graph, its
+    weighted sum as ``pagerank_step`` calls it, against the CPU's
+    ``index_add_``."""
+    from locust_tpu_torch.apps.pagerank import pagerank_grouping, pagerank_prep
+
+    sys.path.append(os.path.dirname(os.path.abspath(__file__)))
+    from benchmark import graph
+
+    with open(os.path.join(os.path.dirname(graph.__file__), "configs",
+                           "pagerank-graph500-s24.json")) as f:
+        cfg = json.load(f)["graph"]
+    dev = torch.device("cuda")
+    n = 1 << cfg["scale"]
+    src, dst = graph.kronecker_arcs(cfg, G500_SEED, "cuda")
+    inv_deg, _ = pagerank_prep(src, n, dev)
+    grouping = pagerank_grouping(src, dst, n, dev)
+    ranks = torch.from_numpy(np.random.default_rng(24).random(n).astype(np.float32) / n).to(dev)
+    init = torch.tensor(np.float32(0.3) / np.float32(n), device=dev)
+    s_cpu, d_cpu = src.cpu(), dst.cpu()
+    want = init.cpu().expand(n).clone().index_add_(
+        0, d_cpu, (ranks.cpu() * inv_deg.cpu())[s_cpu]).to(dev)
+    del s_cpu, d_cpu
+    row = _gather_case(smoke, torch, "pagerank_g500s24", grouping, ranks, inv_deg, init,
+                       want, (src, dst))
+    row["warp_rows"] = grouping.warp_rows
+    return {"pagerank_g500s24": row}
 
 
 def main(argv: list[str]) -> int:

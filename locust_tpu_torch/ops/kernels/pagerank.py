@@ -30,7 +30,11 @@ warp each; the rest a thread each), with int32 indices where the graph
 fits (``index_dtype``).  Its fields unpack in order into ``gather_add``.
 ``gather_add`` launches the kernel for a CUDA tensor (and counts it in
 ``gather_add.launches``) and takes the plain version, ``index_add_`` over
-the grouped edges, only for a CPU tensor.  ``csr_walk_reference`` is the
+the grouped edges, only for a CPU tensor.  The kernel writes each
+source's product ``ranks[v] * inv_deg[v]`` once, into a scratch vector of
+``num_src`` floats, and each edge gathers one of them: the same float32
+product the edge would compute itself, so the same bits, with one random
+4-byte read an edge and no per-edge array.  ``csr_walk_reference`` is the
 same walk as torch ops, in order on any device: the card check holds the
 kernel against it bit for bit.
 """
@@ -172,8 +176,10 @@ def gather_add(init: torch.Tensor, offsets: torch.Tensor, src_by_dst: torch.Tens
     if not 0 <= warp_rows <= n:
         raise ValueError(f"pagerank gather-add: warp_rows {warp_rows} outside 0..{n}")
     total = torch.empty(n, dtype=torch.float32, device=dev)
-    # Each source's product, then each warp-row edge's: the kernel's first phase.
-    scratch = torch.empty(num_src + src_by_dst.shape[0], dtype=torch.float32, device=dev)
+    # Each source's product, written by the kernel's first phase and
+    # gathered once an edge; an unweighted sum gathers ``ranks`` itself.
+    scratch = torch.empty(num_src if inv_deg is not None else 0, dtype=torch.float32,
+                          device=dev)
     with device_guard(dev):
         rc = _kernel()(*(None if t is None else t.data_ptr() for t in args),
                        scratch.data_ptr(), total.data_ptr(), n, num_src, int(warp_rows),

@@ -4,7 +4,7 @@ JAX package on the CPU: ``pagerank``, ``pagerank_prep`` and
 nodes, to rtol 1e-6 and, since the port adds in XLA's CPU order, bit
 for bit; the XLA-order sum alone; the edge-list parser's errors; and the
 gather-add's grouping and node schedule, with a Python walk of the
-schedule as the CUDA kernel walks it (warp rows by chunks, then thread
+schedule as the CUDA kernel walks it (warp rows by groups, then thread
 rows), bit for bit against the CSR walk and JAX's step."""
 
 import torch_threads  # noqa: F401 - first: one torch thread per test process
@@ -100,8 +100,11 @@ def test_pagerank_runs_on_cuda_by_default(monkeypatch):
 
 # ``csrc/pagerank.cu``'s kSpan (a warp row's group of edges), kUnroll (a
 # thread row's edges in flight) and kRowStart (a warp row's start, in
-# edges, which sizes the warp pool).
+# edges, which sizes the warp pool); a pool warp loads a group's sources
+# kAhead + 1 groups of its stream ahead of its adds and gathers their
+# contributions kAhead groups ahead (kAhead = 3), across its rows' ends.
 WARP_ROW_SPAN, THREAD_ROW_SPAN, WARP_ROW_START = 256, 8, 512
+SOURCES_AHEAD, GATHER_AHEAD = 4, 3
 
 
 def _warp_pool(grouping, warps):
@@ -122,22 +125,25 @@ def _warp_pool(grouping, warps):
 
 def _schedule_walk(init, grouping, ranks, inv_deg, warps=12):
     """What ``csrc/pagerank.cu`` walks, in Python, on a grid of ``warps``
-    warps: first every node's contribution and every warp-row edge's
-    product, each rounded to float32; then the warp pool's warps take the
-    warp rows round robin, every other round backwards, each adding its
-    products in groups of ``WARP_ROW_SPAN`` edges (a short last group
-    adds its live edges only), and the other warps' threads take the
+    warps: first every source's contribution, rounded to float32 (no
+    per-edge product); then each warp of the warp pool takes its warp
+    rows round robin, every other round backwards, as one stream of
+    groups of ``WARP_ROW_SPAN`` edges (each row's groups in order, then
+    the next row's): a group's sources loaded ``SOURCES_AHEAD`` groups
+    of the stream before its adds, their contributions gathered
+    ``GATHER_AHEAD`` groups before, only the edges before the row's end
+    read, the group's live edges added in order, and a row's total
+    written after its last group; and the other warps' threads take the
     thread rows, each gathering its sources' contributions
     ``THREAD_ROW_SPAN`` edges at a time, each add predicated on the row's
-    length.  Row ``i`` is node ``schedule[i]``; each total is written
-    once."""
+    length.  Every edge reads one contribution.  Row ``i`` is node
+    ``schedule[i]``; each total is written once."""
     off = grouping.offsets.numpy().astype(np.int64)
     src, sched = grouping.src_by_dst.numpy(), grouping.schedule.numpy()
     r = ranks.numpy()
     d = np.ones_like(r) if inv_deg is None else inv_deg.numpy()  # r * 1.0 is r
     n, rows = len(sched), grouping.warp_rows
     contrib = r * d
-    prod = r[src[:off[rows]]] * d[src[:off[rows]]]
     total = np.full(n, np.nan, np.float32)
     pool = _warp_pool(grouping, warps)
 
@@ -146,15 +152,34 @@ def _schedule_walk(init, grouping, ranks, inv_deg, warps=12):
         total[sched[i]] = acc
 
     for w in range(pool):
+        # The warp's stream: (row, its edges of the group, last group of the row).
+        stream = []
         for rnd in range(-(-rows // pool)):
             i = rnd * pool + (w if rnd % 2 == 0 else pool - 1 - w)
             if i >= rows:
-                continue
-            acc, length = np.float32(init), int(off[i + 1] - off[i])
-            for done in range(0, length, WARP_ROW_SPAN):
-                for p in prod[off[i] + done: off[i] + min(length, done + WARP_ROW_SPAN)]:
-                    acc = acc + p
-            write(i, acc)
+                break
+            for lo in range(off[i], max(off[i + 1], off[i] + 1), WARP_ROW_SPAN):
+                stream.append((i, range(lo, min(lo + WARP_ROW_SPAN, off[i + 1])),
+                               lo + WARP_ROW_SPAN >= off[i + 1]))
+        sources, values = {}, {}
+        for k in range(min(SOURCES_AHEAD, len(stream))):
+            sources[k] = [src[e] for e in stream[k][1]]
+        for k in range(min(GATHER_AHEAD, len(stream))):
+            values[k] = [contrib[s] for s in sources.pop(k)]
+        acc = np.float32(init)
+        for k, (i, edges, last) in enumerate(stream):
+            if k + SOURCES_AHEAD < len(stream):
+                sources[k + SOURCES_AHEAD] = [src[e] for e in stream[k + SOURCES_AHEAD][1]]
+            if k + GATHER_AHEAD < len(stream):
+                values[k + GATHER_AHEAD] = [contrib[s]
+                                            for s in sources.pop(k + GATHER_AHEAD)]
+            assert len(values[k]) == len(edges)
+            for c in values.pop(k):
+                acc = acc + c
+            if last:
+                write(i, acc)
+                acc = np.float32(init)
+        assert not sources and not values
     first = pool if pool < warps else 0  # a grid of one warp takes both
     pool_threads = 32 * (warps - first)
     for t in range(pool_threads):
@@ -245,9 +270,14 @@ def _dst_subset_graph():
 SPECIAL = {
     "hub": _hub_graph,
     # Rows at the edges of a chunk (32), of a thread row's step (8), of a
-    # warp row's group (256) and of its prefetch two groups ahead (512).
+    # warp row's group (256) and of two groups (512).
     "chunk_edges": lambda: _row_lengths_graph(
         [0, 1, 31, 32, 33, 64, 65, 7, 8, 9, 255, 256, 257, 511, 512, 513, 769, 0, 2]),
+    # Rows of three and four groups and one edge either side, at the
+    # reach of the pool warp's loads (its gathers three groups ahead, its
+    # sources four); node 0 dangling.
+    "pipeline_edges": lambda: _row_lengths_graph(
+        [0, 767, 768, 769, 1023, 1024, 1025, 3], seed=9),
     "one_node": lambda: (np.zeros(3, np.int32), np.zeros(3, np.int32), 1),
     "seven_nodes": lambda: _row_lengths_graph([3, 0, 70, 1, 0, 65, 5], seed=8),
 }
@@ -258,8 +288,9 @@ SPECIAL = {
 def test_gather_add_plain_versions_equal_jax_step(case):
     """The gather-add's two plain versions and the walk of its schedule
     give the JAX step's scatter-add bits: on the seeded graphs, a hub row
-    of 2,500 in-edges, rows of 0, 1, 31, 32, 33, 64, 65 ... 769 edges, one
-    node and seven, and a dst-restricted subset (most rows empty)."""
+    of 2,500 in-edges, rows of 0, 1, 31, 32, 33, 64, 65 ... 769 edges, rows
+    of 767 ... 1,025 edges, one node and seven, and a dst-restricted
+    subset (most rows empty)."""
     inv_src = None
     if case.startswith("graph"):
         seed, n, e = GRAPHS[int(case[5:])]
@@ -273,7 +304,7 @@ def test_gather_add_plain_versions_equal_jax_step(case):
     grouping = _check_gather_add(src, dst, n, inv_src)
     deg = np.bincount(dst, minlength=n)
     assert grouping.warp_rows == int((deg > WARP_ROW_THRESHOLD).sum())
-    if case in ("hub", "chunk_edges", "seven_nodes"):
+    if case in ("hub", "chunk_edges", "pipeline_edges", "seven_nodes"):
         assert grouping.warp_rows > 0 and grouping.warp_rows < n
     if case == "dst_subset":
         assert (deg == 0).sum() >= 1500
