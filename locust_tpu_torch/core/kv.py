@@ -36,6 +36,12 @@ class KVBatch:
     def num_valid(self) -> torch.Tensor:
         return self.valid.sum(dtype=torch.int32)
 
+    def tensors(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.key_lanes, self.values, self.valid
+
+    def clone(self) -> "KVBatch":
+        return KVBatch(*(t.clone() for t in self.tensors()))
+
     @classmethod
     def from_bytes(cls, keys: torch.Tensor, values: torch.Tensor, valid: torch.Tensor) -> "KVBatch":
         return cls(

@@ -37,12 +37,15 @@ runner's final wait for the card), and the ``engine.host_syncs`` counter:
 every host read of a fold's tensors and every explicit wait, counted on
 any device so the CPU's count is the card's.
 
-Where ``fold_graph.eligible`` allows (a CUDA device, the ``bitonic``
-fold, the WordCount map through kernel A), ``_fold_all`` and
-``run_stream`` fold each block by one replay of a CUDA graph of the
-block's fold (fold_graph.py); there the map, sort and reduce spans are
-not opened, and ``engine.fold.graph_replays`` counts the replays.
-``timed_run``, ``run_checkpointed`` and every other fold stay eager.
+Every block loop (``_fold_all``, ``_run_stream``, ``run_checkpointed``)
+drives one fold object (fold_graph.py) around ``fold_block``, the one
+place a block is folded.  Where ``fold_graph.eligible`` allows (a CUDA
+device, the ``bitonic`` fold, the WordCount map through kernel A),
+``_fold_all`` and ``run_stream`` hold a ``FoldGraph``: ``fold_block``
+captured as a CUDA graph, one replay a block
+(``engine.fold.graph_replays``), so the map, sort and reduce spans open
+only in its capture.  ``timed_run``, ``run_checkpointed`` and every
+other fold are eager.
 """
 
 from __future__ import annotations
@@ -280,12 +283,11 @@ class _CheckpointPump:
             save_snapshot(self._path, acc, next_block, overflow, max_distinct, self._fp)
             self._sync_writes += 1
         else:
-            # Clones: under the fold graph the table and the counters are
-            # buffers that the next folds write in place.
-            snap = KVBatch(acc.key_lanes.clone(), acc.values.clone(), acc.valid.clone())
+            # Clones: the counters, and under the fold graph the table,
+            # are buffers that the next folds write in place.
             self._writer.submit(next_block, functools.partial(
-                _write_marked, self._eng._fence(acc.values.device), self._path, snap, next_block,
-                overflow.clone(), max_distinct.clone(), self._fp))
+                _write_marked, self._eng._fence(acc.values.device), self._path, acc.clone(),
+                next_block, overflow.clone(), max_distinct.clone(), self._fp))
         self.mark_ms += (time.perf_counter() - t0) * 1e3
 
     def finish(self) -> float:
@@ -401,8 +403,8 @@ class MapReduceEngine:
                 self._fused_stream_seg = fused_stream_seg_blocks(
                     cfg.emits_per_block, cfg.block_lines, self.device.type == "cuda"
                 )
-        # _fold_all and _run_stream fold through a CUDA graph of the
-        # block's fold (fold_graph.py) where the fold allows one; every
+        # _fold_all and _run_stream fold through a CUDA graph of
+        # fold_block (fold_graph.py) where the fold allows one; every
         # other runner, and every other fold, is eager.
         ok, why = fold_graph.eligible(cfg, map_fn, self.device)
         self._graph_key = fold_graph.graph_key(cfg, combine, self.device) if ok else None
@@ -411,11 +413,13 @@ class MapReduceEngine:
 
     # ---------------------------------------------------------------- stages
 
-    def fold_block(self, acc: KVBatch, lines: torch.Tensor):
+    def fold_block(self, acc: KVBatch, lines: torch.Tensor, *, out: KVBatch | None = None):
         """Map one block (or a ``run_stream`` segment of blocks: any whole
         number of kernel tiles) and merge its emits into the running
         table.  Returns ``(table, overflow, distinct)``; ``distinct`` is
         counted before the capacity slice, so a truncation is observable.
+        With ``out`` (a ``resolved_table_size``-row table, ``acc`` itself
+        allowed) the table is written into ``out``'s tensors, and returned.
 
         With the fused kernel on, the kernel pre-aggregates the block and
         the hasht fold settles ``concat(table, residual)`` into ``acc``:
@@ -436,7 +440,7 @@ class MapReduceEngine:
             else:
                 kv, overflow = self.map_fn(lines, self.cfg)
         merged, distinct = fold_into(
-            acc, kv, self._table_size, self._combine, self.cfg.sort_mode
+            acc, kv, self._table_size, self._combine, self.cfg.sort_mode, out
         )
         return merged, overflow, distinct
 
@@ -463,19 +467,15 @@ class MapReduceEngine:
         ev.record(torch.cuda.current_stream(device))
         return ev
 
-    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
-        """Copy a host block to the engine's device, asynchronously from
-        page-locked memory."""
-        return host.to(self.device, non_blocking=host.is_pinned())
-
-    def _fold_graph(self, acc: KVBatch | None):
-        """A fold graph held for one run that starts from ``acc``, or a
-        null context (None) where the fold runs eagerly: off the graph's
-        rule, or from a table of another size."""
+    def _hold_fold(self, acc: KVBatch | None):
+        """The fold of one run that starts from ``acc``, held for the run:
+        a pooled ``FoldGraph`` under the graph's rule, the eager ``Fold``
+        off it or from a table of another size."""
         if self._graph_key is None or (acc is not None and acc.size != self._table_size):
-            return contextlib.nullcontext()
-        return fold_graph.GRAPHS.hold(self._graph_key, lambda: fold_graph.FoldGraph(
-            self.cfg, self.map_fn, self._combine, self.device))
+            return contextlib.nullcontext(fold_graph.Fold(self))
+        return fold_graph.GRAPHS.hold(
+            self._graph_key, lambda: fold_graph.FoldGraph(self.cfg, self.device),
+            self.fold_block)
 
     def empty_table(self) -> KVBatch:
         return KVBatch.empty(self._table_size, self.cfg.key_lanes, self.device)
@@ -504,22 +504,12 @@ class MapReduceEngine:
         counters stay on the device until the caller reads them.  Through
         the fold graph where it engages: one replay a block."""
         self._refolds = 0
-        with self._fold_graph(acc) as graph:
-            if graph is not None:
-                graph.start(acc)
-                for i, blk in enumerate(blocks):
-                    with obs.span("engine.fold.block", i=i):
-                        graph.fold(blk)
-                return graph.result()
-        acc = self.empty_table() if acc is None else acc
-        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
-        max_distinct = torch.zeros((), dtype=torch.int32, device=self.device)
-        for i, blk in enumerate(blocks):
-            with obs.span("engine.fold.block", i=i):
-                acc, blk_overflow, distinct = self.fold_block(acc, blk)
-                overflow = overflow + blk_overflow
-                max_distinct = torch.maximum(max_distinct, distinct)
-        return acc, max_distinct, overflow
+        with self._hold_fold(acc) as fold:
+            fold.start(acc)
+            for i, blk in enumerate(blocks):
+                with obs.span("engine.fold.block", i=i):
+                    fold.fold(blk)
+            return fold.result()
 
     def run(self, rows: np.ndarray, acc: KVBatch | None = None) -> RunResult:
         """Per-block fold over host rows, each block copied to the device
@@ -661,10 +651,7 @@ class MapReduceEngine:
     def _run_stream(self, blocks, checkpoint_dir, every, fingerprint) -> RunResult:
         cfg = self.cfg
         bl, w = cfg.block_lines, cfg.line_width
-        acc = self.empty_table()
-        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
-        max_distinct = torch.zeros((), dtype=torch.int32, device=self.device)
-        start_block = 0
+        start_block, acc, overflow, max_distinct = 0, None, None, None
         pump = None
         if checkpoint_dir is not None:
             if every < 1:
@@ -679,9 +666,7 @@ class MapReduceEngine:
             )
             os.makedirs(checkpoint_dir, exist_ok=True)
             state_path = os.path.join(checkpoint_dir, "state.npz")
-            start_block, overflow, max_distinct, acc = self._load_state(
-                state_path, fingerprint, acc, overflow, max_distinct
-            )
+            start_block, acc, overflow, max_distinct = self._load_state(state_path, fingerprint)
             pump = _CheckpointPump(self, state_path, fingerprint, cfg.async_checkpoint)
 
         # Segments of `seg` blocks, one fold each: under the fused kernel
@@ -705,7 +690,7 @@ class MapReduceEngine:
         t0 = time.perf_counter()
 
         def dispatch(n_filled: int, end: int) -> None:
-            nonlocal acc, overflow, max_distinct, segments, stall_ms, last_mark
+            nonlocal segments, stall_ms, last_mark
             cur_np = cur.numpy()  # locust: noqa[R003] cur is the host staging buffer (CPU memory): .numpy() is a view, no device sync
             cur_np[n_filled * bl:] = 0  # a partial segment's missing blocks
             # The span covers the copy and the fold's dispatch, not device
@@ -713,13 +698,7 @@ class MapReduceEngine:
             span_args = {"seg_blocks": n_filled} if segmented else {}
             with obs.span("stream.block", i=end - 1,
                           staging="ring" if ring is not None else "alloc", **span_args):
-                if graph is None:
-                    acc, seg_overflow, distinct = self.fold_block(acc, self._to_device(cur))
-                else:
-                    graph.fold(cur)  # acc and the counters are its buffers
-            if graph is None:
-                overflow = overflow + seg_overflow
-                max_distinct = torch.maximum(max_distinct, distinct)
+                fold.fold(cur)
             segments += 1
             inflight.append(self._fence())
             if len(inflight) > self.STREAM_DISPATCH_DEPTH:
@@ -736,13 +715,11 @@ class MapReduceEngine:
                 obs.metric_observe("stream.stall_ms", sync_ms)
             due = end - last_mark >= every if segmented else end % every == 0
             if pump is not None and due:
-                pump.mark(acc, end, overflow, max_distinct)
+                pump.mark(fold.table, end, fold.overflow, fold.max_distinct)
                 last_mark = end
 
-        with self._fold_graph(acc) as graph:
-            if graph is not None:
-                graph.start(acc, overflow, max_distinct)
-                acc, overflow, max_distinct = graph.table, graph.overflow, graph.max_distinct
+        with self._hold_fold(acc) as fold:
+            fold.start(acc, overflow, max_distinct)
             try:
                 for i, blk in enumerate(blocks):
                     if i < start_block:  # resume: re-read, don't re-fold
@@ -759,14 +736,13 @@ class MapReduceEngine:
                     dispatch(fill, i + 1)
                 # The final generation, unless the cadence just wrote it.
                 if pump is not None and i + 1 > last_mark:
-                    pump.mark(acc, i + 1, overflow, max_distinct)
+                    pump.mark(fold.table, i + 1, fold.overflow, fold.max_distinct)
                 if pump is not None:
                     flush_ms = pump.finish()  # durable before returning
             finally:
                 if pump is not None:
                     pump.close()
-            if graph is not None:
-                acc, max_distinct, overflow = graph.result()
+            acc, max_distinct, overflow = fold.result()
         with obs.span("engine.fold.drain"):
             self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3
@@ -795,32 +771,31 @@ class MapReduceEngine:
 
     # ---------------------------------------------------------- checkpointing
 
-    def _load_state(self, state_path: str, fingerprint: str, acc: KVBatch,
-                    overflow: torch.Tensor, max_distinct: torch.Tensor, device=None):
-        """Restore ``(start_block, overflow, max_distinct, acc)`` from a
-        snapshot of the same run onto ``device`` (the engine's by
-        default); otherwise pass the fresh state through.  A snapshot of
-        another run, or one that cannot be read, starts the run afresh
-        with a warning."""
-        device = self.device if device is None else device
+    def _load_state(self, state_path: str, fingerprint: str):
+        """Restore ``(start_block, acc, overflow, max_distinct)`` from a
+        snapshot of the same run onto the engine's device; a fresh run is
+        ``(0, None, None, None)`` (``Fold.start``'s empty state).  A
+        snapshot of another run, or one that cannot be read, starts the
+        run afresh with a warning."""
+        fresh = 0, None, None, None
         if not os.path.exists(state_path):
-            return 0, overflow, max_distinct, acc
+            return fresh
         try:
-            snap = load_jax_checkpoint(state_path, device)
+            snap = load_jax_checkpoint(state_path, self.device)
         except Exception as e:  # noqa: BLE001 - a truncated or garbled npz
             logger.warning("checkpoint at %s is unreadable (%s: %s); starting fresh",
                            state_path, type(e).__name__, e)
-            return 0, overflow, max_distinct, acc
+            return fresh
         if snap.fingerprint != fingerprint:
             logger.warning("checkpoint at %s belongs to a different run; starting fresh",
                            state_path)
-            return 0, overflow, max_distinct, acc
+            return fresh
         logger.info("resuming from checkpoint at block %d (%s)", snap.next_block, state_path)
 
         def scalar(v: int) -> torch.Tensor:
-            return torch.tensor(v, dtype=torch.int32, device=device)
+            return torch.tensor(v, dtype=torch.int32, device=self.device)
 
-        return snap.next_block, scalar(snap.overflow), scalar(snap.max_distinct), snap.acc
+        return snap.next_block, snap.acc, scalar(snap.overflow), scalar(snap.max_distinct)
 
     def run_checkpointed(
         self,
@@ -860,20 +835,14 @@ class MapReduceEngine:
             map_fn=getattr(self.map_fn, "__name__", str(self.map_fn)),
         )
 
-        def load():
-            zero = torch.zeros((), dtype=torch.int32, device=self.device)
-            return self._load_state(
-                state_path, fingerprint,
-                KVBatch.empty(self._table_size, self.cfg.key_lanes, self.device), zero, zero,
-                device=self.device,
-            )
-
-        start_block, overflow, max_distinct, acc = load()
+        fold = fold_graph.Fold(self)  # eager: a failed dispatch reloads its state
         pump = _CheckpointPump(self, state_path, fingerprint, self.cfg.async_checkpoint)
         self._refolds = 0
         t0 = time.perf_counter()
         try:
             while True:
+                start_block, *state = self._load_state(state_path, fingerprint)
+                fold.start(*state)
                 dispatch_died = None
                 i = start_block - 1
                 last_mark = start_block
@@ -884,30 +853,29 @@ class MapReduceEngine:
                     # Only the fold is retryable: a checkpoint writer's
                     # error re-raised by pump.mark stays loud.
                     if breaker is None:
-                        acc, blk_overflow, distinct = self.fold_block(acc, lines)
+                        fold.fold(lines)
                     else:
                         try:
-                            acc, blk_overflow, distinct = backend_mod.guarded_dispatch(
-                                breaker, functools.partial(self.fold_block, acc, lines),
+                            backend_mod.guarded_dispatch(
+                                breaker, functools.partial(fold.fold, lines),
                                 block=i, backend="primary",
                             )
                         except backend_mod.DISPATCH_ERRORS as e:
                             dispatch_died = e
                             break
-                    overflow = overflow + blk_overflow
-                    max_distinct = torch.maximum(max_distinct, distinct)
                     if (i + 1) % every == 0:
-                        pump.mark(acc, i + 1, overflow, max_distinct)
+                        pump.mark(fold.table, i + 1, fold.overflow, fold.max_distinct)
                         last_mark = i + 1
                 if dispatch_died is None:
                     if i + 1 > last_mark:  # no second write of a cadence-aligned end
-                        pump.mark(acc, i + 1, overflow, max_distinct)
+                        pump.mark(fold.table, i + 1, fold.overflow, fold.max_distinct)
                     pump.finish()  # the final generation is durable before returning
                     break
                 # The dispatch died (guarded_dispatch counted it).  The
                 # live table is suspect, the last snapshot is not: let
                 # queued work settle, flush a pending write best effort,
-                # wait until the breaker admits the card, and reload.
+                # wait until the breaker admits the card, and reload (at
+                # the loop's top).
                 logger.warning("fold of block %d failed on %s (%s: %s); reloading the last "
                                "checkpoint", i, self.device, type(dispatch_died).__name__,
                                dispatch_died)
@@ -918,9 +886,9 @@ class MapReduceEngine:
                     logger.warning("checkpoint flush after the failed dispatch failed (%s); "
                                    "resuming from the last durable generation", e)
                 _await_probe(breaker, self.device, dispatch_died)
-                start_block, overflow, max_distinct, acc = load()
         finally:
             pump.close()
+        acc, max_distinct, overflow = fold.result()
         with obs.span("engine.fold.drain"):
             self._sync()
         total_ms = (time.perf_counter() - t0) * 1e3

@@ -1,18 +1,19 @@
-"""One block's fold as a CUDA graph, captured once and replayed per block.
-
-An eager ``bitonic`` fold issues ~117 device ops a block from Python:
-kernel A, the emits' packing, the concat with the table, the folded key
-and kernel B's sort, the segment reduce and the two counter updates.
-Issuing them costs the host about four times the device work they queue
-(PERF.md section 5).  A ``FoldGraph`` captures that body once and issues
-it as one ``replay()``: the same kernels at the same shapes, in the same
-order.
+"""A run's fold in two forms around one step: ``engine.fold_block(table,
+lines)`` (the only code that maps a block and merges it into the table),
+then the run's two counters updated in place.  ``Fold`` is the eager
+form.  An eager ``bitonic`` fold issues ~117 device ops a block from
+Python, which costs the host about four times the device work they
+queue (PERF.md section 5); ``FoldGraph`` captures the same step once as
+a CUDA graph and issues it as one ``replay()``: the same kernels at the
+same shapes, in the same order.
 
 The graph reads and writes static buffers: ``block``, ``table`` and the
-counters ``overflow`` and ``max_distinct``.  A fold copies the next
-block into ``block`` and replays; the reduce writes the new table into
-``table`` itself (``segment_reduce_into(out=...)``) after the concat has
-read it, so the table chains from block to block with no copy.
+counters.  A fold copies the next block into ``block`` and replays; the
+step passes ``out=table``, so the reduce writes the new table into
+``table`` after the concat has read it, and the table chains with no
+copy.  The step's map, sort and reduce spans open twice a capture (the
+warm-up and the capture), never in a replay; on the CPU the graph form
+runs the step eagerly, so they open once a block.
 
 ``eligible`` is the engine's rule: the graph needs a CUDA device, a fold
 with no host branch (``bitonic``: the hasht family reads its unresolved
@@ -22,9 +23,10 @@ pageable host memory on every call, which a capture cannot hold).
 
 Graphs outlive the engine that captured them (a plan, and so an engine,
 is built per job): ``GRAPHS`` keeps them by everything that fixes the
-captured body, and a run holds one for its whole length, so two runs
+captured step, and a run holds one for its whole length, so two runs
 never share static buffers and a later run with the same shapes replays
-without a capture.
+without a capture.  A graph keeps no engine: ``hold`` lends it the
+run's ``fold_block``.
 """
 
 from __future__ import annotations
@@ -41,8 +43,6 @@ from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
 from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
 from locust_tpu_torch.ops.map_stage import wordcount_map
-from locust_tpu_torch.ops.process_stage import sort_and_compact
-from locust_tpu_torch.ops.reduce_stage import segment_reduce_into
 
 # The kernels whose wrappers count launches in Python: a capture adds
 # nothing to them, a replay the launches it holds.
@@ -75,34 +75,64 @@ def graph_key(cfg: EngineConfig, combine: str, device: torch.device) -> tuple:
             cfg.resolved_table_size, combine, cfg.sort_mode)
 
 
-class FoldGraph:
-    """One block's fold over static buffers.  ``map_fn`` and ``combine``
-    are the engine's own (``reduce_stage.normalize_combine``'s).  On a
-    CUDA device ``capture`` records the fold and ``fold`` replays it; on
-    the CPU, which has no graphs, ``fold`` runs the same body eagerly, so
-    the tests hold the buffers' bookkeeping there."""
+class Fold:
+    """A run's fold, eager: ``fold`` calls the engine's ``fold_block``,
+    looked up on the engine at every block (so one patched on the class
+    or on the instance is the one that runs), and rebinds the table."""
 
-    def __init__(self, cfg: EngineConfig, map_fn, combine: str, device: torch.device):
-        self._cfg, self._map_fn, self._combine = cfg, map_fn, combine
-        self._table_size = cfg.resolved_table_size
+    def __init__(self, engine):
+        self._engine = engine
+
+    def start(self, acc: KVBatch | None = None, overflow: torch.Tensor | None = None,
+              max_distinct: torch.Tensor | None = None) -> None:
+        """Begin a run: the table ``acc`` (empty when None), the counters
+        copies of the given ones (0 when None)."""
+        eng = self._engine
+        self.table = eng.empty_table() if acc is None else acc
+        self.overflow, self.max_distinct = (
+            torch.zeros((), dtype=torch.int32, device=eng.device) if c is None else c.clone()
+            for c in (overflow, max_distinct))
+
+    def _step(self, fold_block, lines: torch.Tensor, **out) -> None:
+        """Fold ``lines`` into the table: the one place the counters move."""
+        self.table, overflow, distinct = fold_block(self.table, lines, **out)
+        self.overflow.add_(overflow)
+        torch.maximum(self.max_distinct, distinct, out=self.max_distinct)
+
+    def fold(self, block: torch.Tensor) -> None:
+        """Fold one block (on the device, or in host memory: copied, from
+        page-locked memory asynchronously)."""
+        eng = self._engine
+        self._step(eng.fold_block, block.to(eng.device, non_blocking=block.is_pinned()))
+
+    def result(self) -> tuple[KVBatch, torch.Tensor, torch.Tensor]:
+        """``(table, max_distinct, overflow)``."""
+        return self.table, self.max_distinct, self.overflow
+
+
+class FoldGraph(Fold):
+    """The graph form, over static buffers.  On a CUDA device ``capture``
+    records the step and ``fold`` replays it; on the CPU, which has no
+    graphs, ``fold`` runs the step eagerly over the same buffers, so the
+    tests hold the buffers' bookkeeping there.  ``fold_block`` is the
+    step's, set by ``FoldGraphs.hold`` for one run."""
+
+    def __init__(self, cfg: EngineConfig, device: torch.device):
         self.block = torch.zeros((cfg.block_lines, cfg.line_width), dtype=torch.uint8,
                                  device=device)
-        self.table = KVBatch.empty(self._table_size, cfg.key_lanes, device)
+        self.table = KVBatch.empty(cfg.resolved_table_size, cfg.key_lanes, device)
         self.overflow = torch.zeros((), dtype=torch.int32, device=device)
         self.max_distinct = torch.zeros((), dtype=torch.int32, device=device)
+        self.fold_block = None
         self._graph = None
         self._launches = (0,) * len(_COUNTED)  # per replay
         self._released = None  # event after the last run's reads of the buffers
 
-    def _body(self) -> None:
-        kv, overflow = self._map_fn(self.block, self._cfg)
-        grouped = sort_and_compact(KVBatch.concat(self.table, kv), self._cfg.sort_mode)
-        _, distinct = segment_reduce_into(grouped, self._table_size, self._combine, out=self.table)
-        self.overflow.add_(overflow)
-        torch.maximum(self.max_distinct, distinct, out=self.max_distinct)
+    def _graph_step(self) -> None:
+        self._step(self.fold_block, self.block, out=self.table)
 
     def capture(self) -> None:
-        """Warm the body up on a side stream (kernel A's scratch for that
+        """Warm the step up on a side stream (kernel A's scratch for that
         stream, kernel B's occupancy query, the libraries' loads), then
         capture it there.  Neither adds to the launch counters; the
         buffers hold garbage until ``start``.  Kernel A's overflow
@@ -116,13 +146,13 @@ class FoldGraph:
         with obs.span("engine.fold.capture"):
             try:
                 with torch.cuda.stream(stream):
-                    self._body()
+                    self._graph_step()
                 warm = [k.launches for k in _COUNTED]
                 graph = torch.cuda.CUDAGraph()
                 # thread_local: other threads' CUDA calls (a reader, a
                 # checkpoint writer, another job) go on during a capture.
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                    self._body()
+                    self._graph_step()
                 self._launches = tuple(k.launches - w for k, w in zip(_COUNTED, warm))
             finally:
                 for k, b in zip(_COUNTED, before):
@@ -133,13 +163,12 @@ class FoldGraph:
 
     def start(self, acc: KVBatch | None = None, overflow: torch.Tensor | None = None,
               max_distinct: torch.Tensor | None = None) -> None:
-        """Begin a run: the table from ``acc`` (empty when None), the
-        counters from the given ones (0 when None)."""
+        """Begin a run: the table copied from ``acc`` (empty when None),
+        the counters from the given ones (0 when None)."""
         if self._released is not None:
             torch.cuda.current_stream(self.block.device).wait_event(self._released)
-        t = self.table
-        tables = (None,) * 3 if acc is None else (acc.key_lanes, acc.values, acc.valid)
-        for dst, src in zip((t.key_lanes, t.values, t.valid, self.overflow, self.max_distinct),
+        tables = (None,) * 3 if acc is None else acc.tensors()
+        for dst, src in zip((*self.table.tensors(), self.overflow, self.max_distinct),
                             (*tables, overflow, max_distinct)):
             if src is None:
                 dst.zero_()
@@ -151,7 +180,7 @@ class FoldGraph:
         in page-locked host memory, copied asynchronously)."""
         self.block.copy_(block, non_blocking=block.is_pinned())
         if self._graph is None:
-            self._body()
+            self._graph_step()
         else:
             self._graph.replay()
             for k, n in zip(_COUNTED, self._launches):
@@ -161,13 +190,13 @@ class FoldGraph:
     def result(self) -> tuple[KVBatch, torch.Tensor, torch.Tensor]:
         """``(table, max_distinct, overflow)``, cloned: nothing the caller
         keeps aliases a buffer that a later run writes."""
-        t = self.table
-        return (KVBatch(t.key_lanes.clone(), t.values.clone(), t.valid.clone()),
-                self.max_distinct.clone(), self.overflow.clone())
+        return self.table.clone(), self.max_distinct.clone(), self.overflow.clone()
 
     def release(self) -> None:
         """Mark the end of a run's device work on the buffers: the next
-        run's ``start`` waits for it on the card, not on the host."""
+        run's ``start`` waits for it on the card, not on the host.  Drops
+        the run's ``fold_block``, and with it the run's engine."""
+        self.fold_block = None
         if self.block.device.type == "cuda":
             self._released = torch.cuda.Event()
             self._released.record(torch.cuda.current_stream(self.block.device))
@@ -183,15 +212,14 @@ class FoldGraphs:
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
-    def hold(self, key: tuple, make):
-        """``make()`` builds an uncaptured ``FoldGraph`` for ``key``."""
+    def hold(self, key: tuple, make, fold_block):
+        """``make()`` builds an uncaptured ``FoldGraph`` for ``key``;
+        ``fold_block`` is this run's, the one a capture records."""
         with self._lock:
-            free = self._free[key]
-            graph = free.pop() if free else None
-        if graph is None:
-            graph = make()
-            if graph.block.device.type == "cuda":
-                graph.capture()
+            graph = self._free[key].pop() if self._free[key] else make()
+        graph.fold_block = fold_block
+        if graph._graph is None and graph.block.device.type == "cuda":
+            graph.capture()
         try:
             yield graph
         finally:

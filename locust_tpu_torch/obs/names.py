@@ -90,8 +90,8 @@ NAMES = {
     "plan.map_warm_hits": "counter",    # map stages on warm fold-node executables
     # --- port only: inside the fold and the reader thread -------------
     "engine.stage_blocks": "span",  # pad host rows for the card: prepare_blocks (+ the copy), run_stream's ring
-    "engine.fold.block": "span",    # _fold_all: one block's whole fold dispatch
-    "engine.fold.map": "span",      # fold_block: map_fn, or kernel C + its flag read
+    "engine.fold.block": "span",    # _fold_all: one block's fold step (eager, or one graph replay)
+    "engine.fold.map": "span",      # fold_block: map_fn, or kernel C + its flag read; under the fold graph only in its capture
     "engine.fold.sort": "span",     # fold_into: concat(table, block) + sort_and_compact
     "engine.fold.reduce": "span",   # fold_into: segment_reduce_into, or aggregate_exact
     "engine.fold.drain": "span",    # a fold runner's final wait for the card

@@ -367,27 +367,36 @@ def combine_or_passthrough(
     return KVBatch(lanes[:N], vals[:N], valid[:N])
 
 
-def _fold(
-    acc: KVBatch | None, batch: KVBatch, out_size: int, combine: str, sort_mode: str
+def fold_into(
+    acc: KVBatch | None, batch: KVBatch, out_size: int, combine: str, sort_mode: str,
+    out: KVBatch | None = None,
 ) -> tuple[KVBatch, torch.Tensor]:
-    """Reduce ``concat(acc, batch)`` (``batch`` alone when ``acc`` is
-    None) into a bounded ``out_size`` table; returns ``(table,
-    num_segments)``.  The one place a fold picks sort or hasht.  The
-    concat counts to the sort; the hasht family has no sort and counts it
-    to the reduce."""
+    """Fold NEW rows into an existing bounded table produced by an earlier
+    fold at the same ``(out_size, combine, sort_mode)`` (``batch`` alone
+    when ``acc`` is None); returns ``(table, num_segments)``.  The one
+    place a fold picks sort or hasht.  The concat counts to the sort; the
+    hasht family has no sort and counts it to the reduce, and rebuilds the
+    table from ``concat(acc, batch)`` each fold, as the JAX package does
+    (its incremental mode lets stranded keys gather duplicate rows fold
+    after fold).  With ``out`` (an ``out_size``-row table, ``acc``
+    allowed: the concat reads it first) the table is written into
+    ``out``'s tensors, in the hasht family by a copy."""
 
     def rows() -> KVBatch:
         return batch if acc is None else KVBatch.concat(acc, batch)
 
     if sort_mode in HASHT_FAMILY:
         with obs.span("engine.fold.reduce"):
-            return aggregate_exact(
+            table, num = aggregate_exact(
                 rows(), out_size, combine, scatter_impl=scatter_impl_for(sort_mode)
             )
+            if out is not None:
+                table = KVBatch(*(o.copy_(t) for o, t in zip(out.tensors(), table.tensors())))
+            return table, num
     with obs.span("engine.fold.sort"):
         grouped = sort_and_compact(rows(), sort_mode)
     with obs.span("engine.fold.reduce"):
-        return segment_reduce_into(grouped, out_size, combine)
+        return segment_reduce_into(grouped, out_size, combine, out=out)
 
 
 def reduce_into(
@@ -395,15 +404,4 @@ def reduce_into(
 ) -> tuple[KVBatch, torch.Tensor]:
     """Reduce ``batch`` into a bounded ``out_size`` table; returns
     ``(table, num_segments)``."""
-    return _fold(None, batch, out_size, combine, sort_mode)
-
-
-def fold_into(
-    acc: KVBatch, batch: KVBatch, out_size: int, combine: str, sort_mode: str
-) -> tuple[KVBatch, torch.Tensor]:
-    """Fold NEW rows into an existing bounded table produced by an earlier
-    fold at the same ``(out_size, combine, sort_mode)``.  The hasht family
-    rebuilds the table from ``concat(acc, batch)`` each fold, as the JAX
-    package does (its incremental mode lets stranded keys gather duplicate
-    rows fold after fold)."""
-    return _fold(acc, batch, out_size, combine, sort_mode)
+    return fold_into(None, batch, out_size, combine, sort_mode)

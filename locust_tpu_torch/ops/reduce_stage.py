@@ -94,8 +94,7 @@ def segment_reduce_into(
     start = _segment(
         torch.arange(n, dtype=torch.int32, device=dev), start_ids, out_size + 1, "amin"
     )[:out_size]
-    o_lanes, o_values, o_valid = (None,) * 3 if out is None else (
-        out.key_lanes, out.values, out.valid)
+    o_lanes, o_values, o_valid = (None,) * 3 if out is None else out.tensors()
     out_valid = torch.lt(torch.arange(out_size, dtype=torch.int32, device=dev), num_segments,
                          out=o_valid)
     safe_start = torch.where(out_valid, start, 0).long()

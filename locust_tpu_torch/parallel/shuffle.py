@@ -211,8 +211,7 @@ class ShardedCheckpoint:
                         _batch_to_host(leftover, self.mesh), extras)
             return
         # A world of one: the gather is a plain copy, taken off the loop.
-        snap = [KVBatch(b.key_lanes.clone(), b.values.clone(), b.valid.clone())
-                for b in (acc, leftover)]
+        snap = [acc.clone(), leftover.clone()]
         ready = None
         if self.mesh.device.type == "cuda":
             ready = torch.cuda.Event()

@@ -3,7 +3,7 @@ folds engage it, and that a run through it gives the eager fold's table,
 counters and launch counts, with nothing the caller keeps aliasing the
 graph's buffers.
 
-On the CPU, which has no CUDA graphs, a ``FoldGraph`` runs its body
+On the CPU, which has no CUDA graphs, a ``FoldGraph`` runs its step
 eagerly over the same static buffers, so the engine's graph path (the
 buffers' chaining, the clones, the checkpoint pump's copies) is held
 against the eager path here with the rule forced on.  The ``cuda`` tests
@@ -227,6 +227,55 @@ def test_timed_run_and_run_checkpointed_stay_eager(forced, tmp_path):
     assert "engine.fold.graph_replays" not in obs.metrics_snapshot()["counters"]
 
 
+@pytest.mark.parametrize("mode", ["hash", "hashp", "hashp2", "hashp1", "hash1", "radix",
+                                  "bitonic", "lex", "hasht"])
+def test_fold_block_into_out_returns_its_tensors_and_the_same_table(mode):
+    """``fold_block(acc, lines, out=t)`` writes the table into ``t`` (the
+    hasht family by a copy of the table it builds anew), also where ``t``
+    is ``acc`` itself, as the fold graph passes it: bit for bit the
+    table, overflow and distinct count of the fold without ``out``."""
+    cfg = dataclasses.replace(CPU_CFG, sort_mode=mode)
+    eng = MapReduceEngine(cfg, device="cpu")
+    first, second = (torch.from_numpy(np.pad(b, ((0, cfg.block_lines - b.shape[0]), (0, 0))))
+                     for b in _host_blocks(_rows(cfg, 9_000, seed=12), cfg)[:2])
+    acc = eng.fold_block(eng.empty_table(), first)[0]
+    want = eng.fold_block(acc, second)
+
+    def bits(res):
+        table, overflow, distinct = res
+        return [t.numpy().tobytes() for t in table.tensors()] + [int(overflow), int(distinct)]
+
+    alias = acc.clone()
+    for acc, out in ((acc, eng.empty_table()), (alias, alias)):
+        got = eng.fold_block(acc, second, out=out)
+        assert all(g is o for g, o in zip(got[0].tensors(), out.tensors()))
+        assert bits(got) == bits(want) and int(want[2]) > 0
+
+
+@pytest.mark.parametrize("how", ["run_fused", "run_stream"])
+def test_forced_graph_calls_the_class_fold_block_once_a_block(forced, monkeypatch, how):
+    """The graph's step is ``MapReduceEngine.fold_block``: a wrapper of
+    it on the class sees every block of the forced-graph path, with
+    ``out`` the graph's table, and the pooled graph keeps no engine."""
+    rows = _rows(CPU_CFG, 20_000, seed=13)
+    blocks = _host_blocks(rows, CPU_CFG)
+    calls, real = [], MapReduceEngine.fold_block
+
+    def fold_block(self, acc, lines, **kw):
+        calls.append(kw)
+        return real(self, acc, lines, **kw)
+
+    monkeypatch.setattr(MapReduceEngine, "fold_block", fold_block)
+    eng = MapReduceEngine(CPU_CFG, device="cpu")
+    res = eng.run_fused(rows) if how == "run_fused" else eng.run_stream(blocks)
+    (graph,) = fold_graph.GRAPHS._free[eng._graph_key]
+    assert len(calls) == len(blocks) and all(kw["out"] is not None for kw in calls)
+    assert graph.fold_block is None
+    monkeypatch.setattr(MapReduceEngine, "fold_block", real)
+    _eager(monkeypatch)
+    assert _state(res) == _state(MapReduceEngine(CPU_CFG, device="cpu").run_fused(rows))
+
+
 # ------------------------------------------------------------- on a card
 
 
@@ -301,3 +350,24 @@ def test_card_other_folds_stay_eager(card, graphs, mode):
     assert "engine.fold.graph_replays" not in counters
     assert "engine.fold.graph_captures" not in counters
     assert not graphs._free
+
+
+@pytest.mark.cuda
+def test_card_graph_captures_the_class_fold_block_and_never_calls_it_in_a_replay(
+        card, graphs, monkeypatch, tmp_path):
+    rows = _rows(CARD_CFG, 2_000_000, seed=14)
+    calls, real = [], MapReduceEngine.fold_block
+
+    def fold_block(self, acc, lines, **kw):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return real(self, acc, lines, **kw)
+
+    monkeypatch.setattr(MapReduceEngine, "fold_block", fold_block)
+    first = _card_run("run_fused", CARD_CFG, rows, tmp_path / "g1")
+    again = _card_run("run_fused", CARD_CFG, rows, tmp_path / "g2")
+    assert calls == [False, True]  # the warm-up, then the capture
+    monkeypatch.setattr(MapReduceEngine, "fold_block", real)
+    _eager(monkeypatch)
+    want = _card_run("run_fused", CARD_CFG, rows, tmp_path / "e")
+    assert first[0] == again[0] == want[0]
+    assert first[2]["engine.fold.graph_replays"] == -(-rows.shape[0] // CARD_CFG.block_lines) > 2
