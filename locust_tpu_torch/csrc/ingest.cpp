@@ -7,40 +7,56 @@
 //
 // The host ingest of the reference (loadFile, reference
 // MapReduce/src/main.cu:40-64) reads with a getline loop into 204-byte
-// structs; here one buffered read + a single scan splits lines and pads
-// them straight into the caller's contiguous [max_lines, width] uint8
-// buffer, which the Python side hands to torch.from_numpy with no further
-// copy.  Honors the same [line_start, line_end) node-shard slice
-// (main.cu:47-54) and fixes the reference's dropped-final-line
-// off-by-one (SURVEY.md Q1).
+// structs; here the batch entries (ingest_count_lines, ingest_load_rows)
+// stream the file through one reused kChunk buffer (ChunkReader), find
+// line ends with memchr, and pad rows straight into the caller's
+// contiguous [max_lines, width] uint8 buffer (each output byte written
+// once: the row's bytes, then its tail zeroed), which the Python side
+// hands to torch.from_numpy with no further copy.  Honors the same
+// [line_start, line_end) node-shard slice (main.cu:47-54) and fixes the
+// reference's dropped-final-line off-by-one (SURVEY.md Q1).
 
+#include <fcntl.h>
+#include <unistd.h>
+
+#include <cerrno>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 
 namespace {
 
-// Reads the whole file; returns malloc'd buffer (caller frees) or nullptr.
-char* read_file(const char* path, long* size_out) {
-  FILE* f = std::fopen(path, "rb");
-  if (!f) return nullptr;
-  std::fseek(f, 0, SEEK_END);
-  long size = std::ftell(f);
-  std::fseek(f, 0, SEEK_SET);
-  char* buf = static_cast<char*>(std::malloc(size > 0 ? size : 1));
-  if (!buf) {
-    std::fclose(f);
-    return nullptr;
+// The batch entries' read buffer: a line longer than this keeps its first
+// `width` bytes while the rest streams past, as in ingest_load_window.
+constexpr long kChunk = 4L << 20;
+
+// One pass over a file in kChunk pieces through one reused buffer.
+class ChunkReader {
+ public:
+  explicit ChunkReader(const char* path)
+      : fd_(::open(path, O_RDONLY | O_CLOEXEC)),
+        buf_(fd_ >= 0 ? static_cast<char*>(std::malloc(kChunk)) : nullptr) {}
+  ChunkReader(const ChunkReader&) = delete;
+  ChunkReader& operator=(const ChunkReader&) = delete;
+  ~ChunkReader() {
+    std::free(buf_);
+    if (fd_ >= 0) ::close(fd_);
   }
-  long got = static_cast<long>(std::fread(buf, 1, size, f));
-  std::fclose(f);
-  if (got != size) {
-    std::free(buf);
-    return nullptr;
+  bool ok() const { return buf_ != nullptr; }
+  const char* data() const { return buf_; }
+  // Reads the next piece into data(): its bytes, 0 at EOF, -1 on an I/O
+  // error (EINTR retried).
+  long next() {
+    for (;;) {
+      const long got = static_cast<long>(::read(fd_, buf_, kChunk));
+      if (got >= 0 || errno != EINTR) return got;
+    }
   }
-  *size_out = size;
-  return buf;
-}
+
+ private:
+  const int fd_;
+  char* const buf_;
+};
 
 }  // namespace
 
@@ -49,56 +65,74 @@ extern "C" {
 // Number of lines in the file ('\n'-separated; a trailing fragment without
 // a newline counts — the Q1 fix).  Returns -1 on I/O error.
 long ingest_count_lines(const char* path) {
-  long size = 0;
-  char* buf = read_file(path, &size);
-  if (!buf) return -1;
-  long lines = 0;
-  bool in_line = false;
-  for (long i = 0; i < size; ++i) {
-    if (buf[i] == '\n') {
+  ChunkReader in(path);
+  if (!in.ok()) return -1;
+  long lines = 0, got;
+  char last = '\n';
+  while ((got = in.next()) > 0) {
+    const char* p = in.data();
+    const char* const e = p + got;
+    while ((p = static_cast<const char*>(std::memchr(p, '\n', e - p)))) {
       ++lines;
-      in_line = false;
-    } else {
-      in_line = true;
+      ++p;
     }
+    last = e[-1];
   }
-  if (in_line) ++lines;
-  std::free(buf);
-  return lines;
+  if (got < 0) return -1;
+  return last == '\n' ? lines : lines + 1;
 }
 
 // Load lines [line_start, line_end) into out[max_lines][width], NUL-padded,
 // '\r' stripped at line end, content truncated to width.  Negative
 // start/end mean "whole file" (reference CLI default, main.cu:369-374).
+// Every returned row is written whole (its bytes, then its zeroed tail), so
+// `out` needs no zeroing; rows past the return value are left untouched.
 // Returns rows written, or -1 on I/O error.
 long ingest_load_rows(const char* path, unsigned char* out, long max_lines,
                       long width, long line_start, long line_end) {
-  long size = 0;
-  char* buf = read_file(path, &size);
-  if (!buf) return -1;
-  long start = line_start < 0 ? 0 : line_start;
-  long end = line_end < 0 ? -1 : line_end;  // -1 = unbounded
-
-  std::memset(out, 0, static_cast<size_t>(max_lines) * width);
+  ChunkReader in(path);
+  if (!in.ok()) return -1;
+  const long start = line_start < 0 ? 0 : line_start;
+  const long end = line_end;  // < 0 = unbounded
   long line = 0, row = 0;
-  long pos = 0;
-  while (pos <= size - 1 || (pos == 0 && size == 0)) {
-    if (pos >= size) break;
-    // Find line extent [pos, eol).
-    long eol = pos;
-    while (eol < size && buf[eol] != '\n') ++eol;
-    if (line >= start && (end < 0 || line < end) && row < max_lines) {
-      long len = eol - pos;
-      if (len > 0 && buf[pos + len - 1] == '\r') --len;  // CRLF
-      if (len > width) len = width;
-      std::memcpy(out + row * width, buf + pos, len);
+  long len = 0;  // bytes seen of the line in progress
+  auto wanted = [&]() { return line >= start && (end < 0 || line < end); };
+  auto stop = [&]() { return row >= max_lines || (end >= 0 && line >= end); };
+  // Close the line in progress: strip a CRLF '\r' only when it is the
+  // line's last byte (at a truncated position it is data), zero the tail.
+  auto close_line = [&]() {
+    if (wanted()) {
+      unsigned char* r = out + row * width;
+      long keep = len < width ? len : width;
+      if (len <= width && len > 0 && r[len - 1] == '\r') --keep;
+      std::memset(r + keep, 0, static_cast<size_t>(width - keep));
       ++row;
     }
     ++line;
-    pos = eol + 1;
-    if (end >= 0 && line >= end) break;
+    len = 0;
+  };
+
+  bool done = stop();
+  long got = 0;
+  while (!done && (got = in.next()) > 0) {
+    const char* p = in.data();
+    const char* const e = p + got;
+    while (p < e) {
+      const char* nl = static_cast<const char*>(std::memchr(p, '\n', e - p));
+      const long n = (nl ? nl : e) - p;
+      if (len < width && wanted()) {
+        const long take = n < width - len ? n : width - len;
+        std::memcpy(out + row * width + len, p, static_cast<size_t>(take));
+      }
+      len += n;
+      if (!nl) break;  // the line goes on in the next piece
+      close_line();
+      if ((done = stop())) break;
+      p = nl + 1;
+    }
   }
-  std::free(buf);
+  if (got < 0) return -1;
+  if (!done && len > 0) close_line();  // trailing fragment (Q1)
   return row;
 }
 

@@ -83,13 +83,14 @@ def count_lines(path: str) -> int:
 def load_rows(path: str, line_width: int, line_start: int = -1,
               line_end: int = -1) -> np.ndarray:
     """File -> padded ``[rows, line_width]`` uint8, sliced ``[line_start,
-    line_end)``."""
+    line_end)``.  The reader writes every row it returns whole, padding
+    included, so the buffer starts uninitialised."""
     lib = _load()
     total = count_lines(path)
     start = max(line_start, 0)
     end = total if line_end < 0 else min(line_end, total)
     n_rows = max(end - start, 0)
-    out = np.zeros((n_rows, line_width), dtype=np.uint8)
+    out = np.empty((n_rows, line_width), dtype=np.uint8)
     if n_rows == 0:
         return out
     wrote = lib.ingest_load_rows(str(path).encode(), _ptr(out), n_rows, line_width,

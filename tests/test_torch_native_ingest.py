@@ -23,6 +23,43 @@ from locust_tpu_torch.io import serde as tserde
 
 CORPUS = b"first line\nsecond, line\nthird-line\r\nfourth\nlast without newline"
 SLICES = [(-1, -1), (1, 3), (0, 2), (4, 99), (2, 2), (99, 200), (3, -1)]
+CHUNK = 4 << 20  # the batch reader's read buffer (csrc/ingest.cpp kChunk)
+
+
+def _random_lines(seed: int, n_bytes: int) -> bytes:
+    """Lines of 0-300 random bytes (CR and NUL among them) up to
+    ``n_bytes``: across several MiB a line straddles every chunk edge."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdef ,.-;:'()\"\t\r\x00", dtype=np.uint8)
+    data = rng.choice(alphabet, size=n_bytes)
+    ends = np.cumsum(rng.integers(0, 301, size=n_bytes // 100))
+    data[ends[ends < n_bytes]] = ord("\n")
+    return data.tobytes()
+
+
+def _around_the_cut(width: int) -> bytes:
+    """A CR exactly at the width cut (the line's last byte) and just past
+    it, a CR at the cut followed by more bytes, lines of exactly
+    ``width``, ``width`` + 1 and ``width`` - 1 bytes."""
+    x = b"x" * (width - 1)
+    return b"\n".join([x + b"\r", x + b"y\r", x + b"\rtail", x + b"y", x + b"yz",
+                       x, x + b"\r\r", b"\r", b"\r\r"]) + b"\n"
+
+
+EDGE_CASES = {
+    "random_lines_across_chunks": lambda: _random_lines(11, 2 * CHUNK + 123_457),
+    "line_longer_than_the_buffer": lambda: (b"head\n" + b"L" * (CHUNK + CHUNK // 2)
+                                            + b"\r\nnext\r\n" + b"M" * (2 * CHUNK) + b"\r"),
+    # A newline as a chunk's last byte, one as the next chunk's first, and
+    # a CRLF split across the second edge.
+    "newline_at_the_chunk_edges": lambda: (b"a" * (CHUNK - 1) + b"\n\n" + b"b" * (CHUNK - 2)
+                                           + b"\r\nc\n"),
+    "cr_around_the_cut": lambda: _around_the_cut(16) + _around_the_cut(32),
+    "empty_lines": lambda: b"\n\nab\n\n\ncd\r\n\r\n\n",
+    "only_newlines": lambda: b"\n" * 1000,
+    "empty_file": lambda: b"",
+    "no_final_newline": lambda: b"one\ntwo\r\nthree",
+}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -81,6 +118,60 @@ def test_count_lines_and_long_line(stress_file):
         tloader.count_lines(stress_file)
     np.testing.assert_array_equal(tloader.load_rows(stress_file, 64),
                                   jloader.load_rows(stress_file, 64, use_native=False))
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_scan_edge_cases_equal_jax(tmp_path, case):
+    """The batch reader's chunked scan against the JAX package's native
+    reader and both Python paths, at the widths around the cut, over every
+    slice and a slice that ends past the file."""
+    p = tmp_path / f"{case}.txt"
+    p.write_bytes(EDGE_CASES[case]())
+    path = str(p)
+    total = tloader.count_lines(path)
+    assert tnative.count_lines(path) == jnative.count_lines(path) == total
+    for width in (16, 32):
+        for sl in SLICES + [(max(total - 2, 0), total + 100), (0, total + 1)]:
+            got = tloader.load_rows(path, width, *sl)
+            np.testing.assert_array_equal(got, jnative.load_rows(path, width, *sl))
+            np.testing.assert_array_equal(
+                got, jloader.load_rows(path, width, *sl, use_native=False))
+            np.testing.assert_array_equal(
+                got, tloader.load_rows(path, width, *sl, use_native=False))
+            assert got.dtype == np.uint8 and got.shape[1] == width
+    if case == "empty_file":
+        assert tloader.load_rows(path, 32).shape == (0, 32)
+
+
+def test_load_rows_fill_zeroes_each_rows_tail(tmp_path):
+    """``ingest_load_rows`` into a buffer of 0xFF: every row it returns
+    equals the JAX reader's, so the C fill zeroes each row's tail itself
+    (what lets the wrapper allocate with ``np.empty``); the rows past its
+    return value are left as they were."""
+    p = tmp_path / "fill.txt"
+    p.write_bytes(_around_the_cut(32) + _random_lines(3, 300_000))
+    path = str(p)
+    lib = tnative._load()
+    for sl in SLICES + [(5, 4000)]:
+        want = jnative.load_rows(path, 32, *sl)
+        out = np.full((len(want) + 2, 32), 0xFF, dtype=np.uint8)
+        wrote = lib.ingest_load_rows(path.encode(), tnative._ptr(out), len(out), 32, *sl)
+        assert wrote == len(want)
+        np.testing.assert_array_equal(out[:wrote], want)
+        assert (out[wrote:] == 0xFF).all()
+
+
+@pytest.mark.parametrize("kind", ["missing", "directory"])
+def test_unreadable_file_raises_oserror(tmp_path, kind):
+    """A missing file (open fails) or a directory (read fails) is an
+    ``OSError`` from both batch entries, never rows."""
+    path = str(tmp_path / "absent.txt") if kind == "missing" else str(tmp_path)
+    with pytest.raises(OSError):
+        tnative.count_lines(path)
+    with pytest.raises(OSError):
+        tloader.load_rows(path, 32)
+    out = np.zeros((4, 32), dtype=np.uint8)
+    assert tnative._load().ingest_load_rows(path.encode(), tnative._ptr(out), 4, 32, -1, -1) == -1
 
 
 @pytest.mark.parametrize("block_lines", [1, 2, 3, 100])
