@@ -15,13 +15,25 @@ recipe:
                (``ops/process_stage`` "lex" mode: exact byte order).
 
 Rank d then holds range shard d, internally sorted, and every key on rank
-d precedes every key on rank d+1: a globally sorted sequence.  Skewed
+d precedes every key on rank d+1: a globally sorted sequence.
+``sort_records`` sorts whole fixed-width records by a key prefix (the
+TeraSort record sort): the record bytes travel in the range shuffle
+beside their keys, in one more all-to-all, and are gathered into key
+order after the local sort.  A bin holds at most a rank's own rows, so
+it is capped there.  Skewed
 inputs (duplicate-heavy keys) can overflow a range bin; the overflow is
 counted and summed over the ranks (an integer, exact in any order), and
 ``sort_strings`` retries with doubled bins.  The sorts are stable torch
 sorts; the JAX package's are not, so rows of equal keys may carry their
 values in another order (the keys, the overflow and the retries are the
 same).
+
+Spans ``sample_sort.sample`` (the splitters), ``sample_sort.partition``
+(the buckets, the bins and the exchanges), ``sample_sort.local`` (the
+lex sort) and ``sample_sort.records`` (the records' gather into key
+order); counters ``sample_sort.rows`` (valid rows this rank sorted),
+``sample_sort.retries`` (``sort_strings``' doublings) and
+``sample_sort.host_syncs`` (host reads of the sort's tensors).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from locust_tpu_torch import obs
 from locust_tpu_torch.config import EngineConfig
 from locust_tpu_torch.core import bytes_ops, packing
 from locust_tpu_torch.core.kv import KVBatch
@@ -49,6 +62,24 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _host_ints(*ts: torch.Tensor) -> list[int]:
+    """The scalar tensors' values on the host, in one read, counted in
+    ``sample_sort.host_syncs``."""
+    obs.metric_inc("sample_sort.host_syncs")
+    return [int(v) for v in torch.stack([t.to(torch.int64) for t in ts]).tolist()]
+
+
+def _record_words(records: torch.Tensor) -> torch.Tensor:
+    """``[n, R]`` uint8 records as ``[n, R / k]`` rows of the widest
+    integer of ``k`` bytes that divides ``R`` (the same memory): fewer,
+    wider elements for the gathers that move whole records."""
+    width = records.shape[1]
+    for dtype in (torch.int64, torch.int32, torch.int16):
+        if width % dtype.itemsize == 0:
+            return records.contiguous().view(dtype)
+    return records.contiguous()
+
+
 class DistributedSort:
     """Globally sort fixed-width byte keys (with int32 payloads) on a mesh."""
 
@@ -61,7 +92,9 @@ class DistributedSort:
         self.n_dev = mesh.shape[axis_name]
         self.rows_per_device = rows_per_device
         self.sample_per_device = sample_per_device
-        self.bin_capacity = sized_bins(rows_per_device, self.n_dev, skew_factor)
+        # A bin never receives more than the rank's own rows.
+        self.bin_capacity = min(sized_bins(rows_per_device, self.n_dev, skew_factor),
+                                _round_up(max(1, rows_per_device), 8))
         self.shard_capacity = self.n_dev * self.bin_capacity
 
     def _splitters(self, lanes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -72,7 +105,7 @@ class DistributedSort:
         n_dev, s = self.n_dev, self.sample_per_device
         dev = lanes.device
         compact_idx = torch.sort((~valid).to(torch.int8), stable=True).indices
-        n_valid = int(valid.sum())
+        n_valid, = _host_ints(valid.sum())
         i = torch.arange(s, device=dev)
         stride_idx = i * (n_valid // s) + (i * (n_valid % s)) // s
         take = compact_idx[stride_idx.clamp(0, lanes.shape[0] - 1)]
@@ -82,21 +115,33 @@ class DistributedSort:
         # the valid prefix only.
         u = packing.to_u32(all_samples)
         sorted_lanes = all_samples[_lexsort([(~all_ok).to(torch.int64), *u.unbind(dim=1)])]
-        n_valid_samples = int(all_ok.sum())
+        n_valid_samples, = _host_ints(all_ok.sum())
         j = torch.arange(1, n_dev, device=dev)
         idx = (j * n_valid_samples // n_dev).clamp(0, sorted_lanes.shape[0] - 1)
         return sorted_lanes[idx]
 
-    def _step(self, keys_rows: torch.Tensor, values: torch.Tensor, valid: torch.Tensor):
+    def _step(self, keys_rows: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
+              records: torch.Tensor | None = None):
         """This rank's body: sample, range shuffle, local sort.  Returns
-        its sorted shard and the overflow summed over the ranks."""
+        its sorted shard, the overflow summed over the ranks and, given
+        ``records`` (rows that ``values`` index), the rows this rank
+        received, sender-major, which the shard's values then index."""
         kv = KVBatch.from_bytes(keys_rows, values, valid)
-        splitters = self._splitters(kv.key_lanes, valid)
-        bucket = packing.lanes_geq_table(kv.key_lanes, splitters).sum(dim=-1)  # [N] in [0, n)
-        s_lanes, s_vals, s_valid, overflow, _ = partition_to_bins(
-            kv, self.n_dev, self.bin_capacity, bucket=bucket)
-        received = exchange_bins(self.mesh, self.axis, s_lanes, s_vals, s_valid)
-        return sort_and_compact(received, mode="lex"), self.mesh.all_reduce(overflow, self.axis)
+        with obs.span("sample_sort.sample"):
+            splitters = self._splitters(kv.key_lanes, valid)
+        with obs.span("sample_sort.partition"):
+            bucket = packing.lanes_geq_table(kv.key_lanes, splitters).sum(dim=-1)  # [N] in [0, n)
+            s_lanes, s_vals, s_valid, overflow, _ = partition_to_bins(
+                kv, self.n_dev, self.bin_capacity, bucket=bucket)
+            received = exchange_bins(self.mesh, self.axis, s_lanes, s_vals, s_valid)
+            moved = None
+            if records is not None:
+                moved = self.mesh.all_to_all(records[s_vals.long()], self.axis).flatten(0, 1)
+                received = KVBatch(received.key_lanes, torch.arange(
+                    received.size, dtype=torch.int32, device=moved.device), received.valid)
+        with obs.span("sample_sort.local"):
+            table = sort_and_compact(received, mode="lex")
+        return table, self.mesh.all_reduce(overflow, self.axis), moved
 
     def sort_rows(self, keys: np.ndarray, values: np.ndarray | None = None) -> "SortResult":
         """Globally sort host ``[n, key_width]`` byte rows (+ optional
@@ -114,9 +159,50 @@ class DistributedSort:
         pv[:n] = values
         pvalid = np.zeros((total,), bool)
         pvalid[:n] = True
-        table, overflow = self._step(shard_rows(pk, self.mesh), scatter_host_array(pv, self.mesh),
-                                     scatter_host_array(pvalid, self.mesh))
-        return SortResult(table, int(overflow), self.shard_capacity, self.mesh, self.axis)
+        mine = n - self.mesh.rank * self.rows_per_device
+        obs.metric_inc("sample_sort.rows", min(max(mine, 0), self.rows_per_device))
+        table, overflow, _ = self._step(shard_rows(pk, self.mesh),
+                                        scatter_host_array(pv, self.mesh),
+                                        scatter_host_array(pvalid, self.mesh))
+        overflow, = _host_ints(overflow)
+        return SortResult(table, overflow, self.shard_capacity, self.mesh, self.axis)
+
+    def sort_records(self, records, key_bytes: int) -> tuple[torch.Tensor, int]:
+        """Globally sort this rank's ``[n, R]`` uint8 records (a tensor on
+        the rank's device; numpy is copied there once) by their first
+        ``key_bytes`` bytes, unsigned, zero-padded to ``cfg.key_width``.
+        ``n`` may differ between ranks, up to ``rows_per_device``.
+
+        Returns this rank's sorted records ``[m, R]`` on its device and
+        the overflow summed over the ranks: rank ``d`` holds range ``d``,
+        so the ranks' outputs in rank order are the global order.  Stable:
+        equal keys keep their input order (sender-major across ranks)."""
+        dev = self.mesh.device
+        records = torch.as_tensor(records, device=dev)
+        if records.dim() != 2 or records.dtype != torch.uint8:
+            raise ValueError(f"records must be [n, R] uint8, got {tuple(records.shape)} "
+                             f"{records.dtype}")
+        n, width = records.shape
+        if not 0 < key_bytes <= min(self.cfg.key_width, width):
+            raise ValueError(f"key_bytes {key_bytes} must lie in [1, min(key_width "
+                             f"{self.cfg.key_width}, record width {width})]")
+        if max(n, self.rows_per_device) >= 2**31:
+            raise ValueError(f"{max(n, self.rows_per_device)} rows: the sort's int32 row "
+                             "indices hold fewer than 2**31")
+        if n > self.rows_per_device:
+            raise ValueError(f"{n} records > rows_per_device {self.rows_per_device}")
+        obs.metric_inc("sample_sort.rows", n)
+        keys = torch.zeros((self.rows_per_device, self.cfg.key_width), dtype=torch.uint8,
+                           device=dev)
+        keys[:n, :key_bytes] = records[:, :key_bytes]
+        index = torch.arange(self.rows_per_device, dtype=torch.int32, device=dev)
+        # An empty rank still gathers its (invalid) bin slots from one row.
+        words = _record_words(records if n else records.new_zeros((1, width)))
+        table, overflow, received = self._step(keys, index, index < n, words)
+        overflow, m = _host_ints(overflow, table.num_valid())
+        with obs.span("sample_sort.records"):
+            out = received[table.values[:m].long()]
+        return out.view(torch.uint8), overflow
 
 
 class SortResult:
@@ -172,7 +258,9 @@ def sort_strings(strings: list[bytes], mesh: Mesh, cfg: EngineConfig | None = No
     skew = kw.pop("skew_factor", 2.0)
     if max_retries is None:
         max_retries = max(1, math.ceil(math.log2(max(2.0, n_dev / skew))) + 1)
-    for _ in range(max_retries + 1):
+    for attempt in range(max_retries + 1):
+        if attempt:
+            obs.metric_inc("sample_sort.retries")
         ds = DistributedSort(mesh, cfg, rows_per_device, skew_factor=skew, **kw)
         res = ds.sort_rows(rows)
         if res.overflow == 0:

@@ -34,6 +34,9 @@ PORT_ONLY = {
     "engine.fold.graph_replays": "counter",
     "pagerank.prep": "span", "pagerank.grouping": "span", "pagerank.iteration": "span",
     "pagerank.iterations": "counter",
+    "sample_sort.sample": "span", "sample_sort.partition": "span", "sample_sort.local": "span",
+    "sample_sort.records": "span", "sample_sort.rows": "counter",
+    "sample_sort.retries": "counter", "sample_sort.host_syncs": "counter",
 }
 
 KW = dict(block_lines=64, line_width=128, key_width=16, emits_per_line=8, sort_mode="hash")

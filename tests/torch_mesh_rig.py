@@ -467,7 +467,56 @@ def sorted_runs(pairs) -> tuple[list, dict]:
     return [k for k, _ in pairs], dict(by_key)
 
 
-def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=()) -> None:
+RECORD_BYTES, KEY_BYTES = 100, 10
+# kind -> (records per rank, rows_per_device) of the record sort's world
+# scenarios; a rank's records are ``terasort_input(kind, n, rank)``.
+TERASORT = {"gensort": (1500, 1504), "planted": (1200, 1504), "binary": (900, 1024),
+            "padded": (40, 1024)}
+
+
+def terasort_input(kind: str, n: int, seed: int) -> np.ndarray:
+    """``[n, 100]`` uint8 records: ``gensort`` (uniform printable 10-byte
+    keys), ``planted`` (keys sharing 8- and 9-byte prefixes, and exact
+    duplicates), ``binary`` (key bytes over 0..255, so unsigned order
+    differs from signed) or ``padded`` (as gensort, a few records).  Bytes
+    12-19 hold the record's number, so input order is visible."""
+    rng = np.random.default_rng([seed, len(kind)])
+    rec = rng.integers(0x20, 0x7F, (n, RECORD_BYTES), dtype=np.uint8)
+    if kind == "binary":
+        rec[:, :KEY_BYTES] = rng.integers(0, 256, (n, KEY_BYTES), dtype=np.uint8)
+        rec[: n // 3, :2] = rng.choice(np.array([0x00, 0x7F, 0x80, 0xFF], np.uint8), (n // 3, 2))
+    if kind == "planted":
+        i = np.arange(n)
+        rec[i % 4 == 1, :8] = np.frombuffer(b"TeraSort", np.uint8)
+        rec[i % 4 == 1, 8:KEY_BYTES] = rng.choice(np.frombuffer(b" !~", np.uint8),
+                                                  ((i % 4 == 1).sum(), 2))
+        rec[i % 4 == 2, :9] = np.frombuffer(b"TeraSort!", np.uint8)
+        rec[i % 4 == 2, 9] = rng.choice(np.frombuffer(b" !~", np.uint8), (i % 4 == 2).sum())
+        dups = np.frombuffer(b"duplicate0duplicate1TeraSort!!", np.uint8).reshape(3, KEY_BYTES)
+        rec[i % 4 == 3, :KEY_BYTES] = dups[rng.integers(0, 3, (i % 4 == 3).sum())]
+    rec[:, 12:20] = np.arange(n, dtype=">u8").view(np.uint8).reshape(n, 8)
+    return rec
+
+
+def run_terasort(mesh, kind: str) -> dict:
+    """Every rank's ``sort_records`` output, in rank order, and the
+    overflow; rank ``r`` sorts ``terasort_input(kind, n, r)``."""
+    import torch.distributed as dist
+
+    from locust_tpu_torch.apps.sample_sort import DistributedSort
+    from locust_tpu_torch.config import EngineConfig
+
+    n, rows_per_device = TERASORT[kind]
+    got, overflow = DistributedSort(mesh, EngineConfig(key_width=12), rows_per_device).sort_records(
+        terasort_input(kind, n, mesh.rank), KEY_BYTES)
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, got.cpu().numpy())
+    return {"records": np.concatenate(parts), "counts": np.array([p.shape[0] for p in parts]),
+            "overflow": np.array(overflow)}
+
+
+def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=(),
+                terasort=()) -> None:
     from locust_tpu_torch import apps
 
     for name in pagerank:
@@ -476,12 +525,15 @@ def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=
         out[f"index_{name}"] = run_index(apps, pkg, mesh, name)
     for name in sort:
         out[f"sort_{name}"] = run_sort(apps, pkg, mesh, name)
+    for name in terasort:
+        tables[f"terasort_{name}"] = run_terasort(mesh, name)
 
 
 APP_SUITES = {
     "apps_pagerank": dict(pagerank=tuple(PAGERANK)),
     "apps_index": dict(index=tuple(INDEX)),
     "apps_sort": dict(sort=tuple(SORT)),
+    "apps_terasort": dict(terasort=tuple(TERASORT)),
     "apps_world4": dict(pagerank=("sharded_1003", "sharded_dangling", "distributed_zipf"),
                         index=("oracle", "skew"),
                         sort=("random", "dups", "dups_retry", "dups_overflow")),
