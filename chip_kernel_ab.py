@@ -29,6 +29,26 @@ scatter-add) and, at the web graph, ``pagerank``'s iterations per second
 (20 iterations, median of 3).  Prints one JSON line per run, the card's name and power
 limit, and last a JSON line with each checkout's mean over its two runs.
 Imports nothing of JAX.
+
+The range shuffle's partition (group ``partition``) runs at
+``ts-huge-resident``'s shapes: 80,000,000 rows of 3 key lanes, values and
+100-byte records (random, seed 24), into 1 bin (every row's bucket 0)
+and into 4 (uniform buckets), with ``DistributedSort``'s bin capacity.
+Each checkout runs what its ``sample_sort.partition`` span runs after
+the bucket: a checkout with ``shuffle.partition_packed`` the kernel
+(held slot for slot, and the records byte for byte in every filled slot,
+against the plain version ``ops/kernels/partition._plain`` on the card),
+one without it ``partition_to_bins``, the exchange's ``cat`` and the
+records' gather by the binned values.  Reported: wall time (CUDA events
+over 10 calls), the device ops per call and their device time (every op
+``torch.profiler`` records over 5 calls), the kernel's own (its
+histogram, scan and scatter, each also alone) and its bytes bound at 3.35 TB/s
+(``utils/roofline.partition_min_bytes``, from this script's checkout).
+
+    python3 chip_kernel_ab.py BASE_ROOT NEW_ROOT [GROUP ...]
+
+runs only the named groups (``kernels``: A and C; ``pagerank``;
+``partition``), all three by default.
 """
 
 from __future__ import annotations
@@ -41,12 +61,16 @@ import sys
 KERNELS = {"tokenize": "tokenize_kernel", "fused_fold": "fused_preagg_kernel",
            "pagerank_web": "gather_add_kernel", "pagerank_uniform": "gather_add_kernel",
            "pagerank_long_rows": "gather_add_kernel", "pagerank_send_w2": "gather_add_kernel",
-           "pagerank_receive_w2": "gather_add_kernel", "pagerank_g500s24": "gather_add_kernel"}
+           "pagerank_receive_w2": "gather_add_kernel", "pagerank_g500s24": "gather_add_kernel",
+           "partition_b1": "partition_", "partition_b4": "partition_"}
+GROUPS = ("kernels", "pagerank", "partition")
 # The SCALE-24 graph's seed.
 G500_SEED = 2_000_000_024
+# ts-huge-resident's rows, key lanes and record bytes.
+PARTITION_SHAPE = (80_000_000, 3, 100)
 
 
-def _child(root: str) -> dict:
+def _child(root: str, groups: list[str]) -> dict:
     import importlib.util
 
     import numpy as np
@@ -65,7 +89,15 @@ def _child(root: str) -> dict:
     from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
     from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
 
-    _build.build(("tokenize", "fused_fold", "pagerank"))
+    _build.build(tuple(k for k in ("tokenize", "fused_fold", "pagerank", "partition")
+                       if k in _build.KERNEL_SOURCES))
+    out = {"root": root}
+    if "partition" in groups:
+        out.update(_partition(smoke, torch))
+    if "pagerank" in groups:
+        out.update(_pagerank(smoke, torch, np))
+    if "kernels" not in groups:
+        return out
     cfg = EngineConfig(sort_mode="fused")
     E, K, W, BL = cfg.emits_per_line, cfg.key_width, cfg.line_width, cfg.block_lines
     with open(os.path.join(root, "data", "sample_corpus.txt"), "rb") as f:
@@ -74,14 +106,90 @@ def _child(root: str) -> dict:
     x = torch.from_numpy(np.ascontiguousarray(rows)).cuda()
     calls = {"tokenize": lambda: tokenize_block_kernel(x, E, K),
              "fused_fold": lambda: fused_block_preagg(x, cfg)}
-    out = {"root": root}
     for name, fn in calls.items():
         out[name] = {"wall_ms": smoke.cuda_ms(torch, fn, reps=200, warmup=50)}
     for name, fn in calls.items():
         ops, total, own = smoke.call_profile(torch, fn, KERNELS[name])
         out[name].update(device_ops_per_call=ops, device_ms=total, kernel_device_ms=own)
-    out.update(_pagerank(smoke, torch, np))
     return out
+
+
+def _partition(smoke, torch) -> dict:
+    """The partition at ``ts-huge-resident``'s shapes into 1 and 4 bins,
+    through the checkout's own path (module docstring)."""
+    from locust_tpu_torch.apps.sample_sort import _round_up
+    from locust_tpu_torch.core.kv import KVBatch
+    from locust_tpu_torch.parallel import shuffle
+
+    n, n_lanes, width = PARTITION_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    words = torch.randint(-2**31, 2**31, (n, width // 4), dtype=torch.int32, device=dev,
+                          generator=gen)
+    kv = KVBatch(torch.randint(-2**31, 2**31, (n, n_lanes), dtype=torch.int32, device=dev,
+                               generator=gen),
+                 torch.arange(n, dtype=torch.int32, device=dev),
+                 torch.ones(n, dtype=torch.bool, device=dev))
+    kernel = hasattr(shuffle, "partition_packed")
+    out = {}
+    for n_bins in (1, 4):
+        cap = min(shuffle.sized_bins(n, n_bins, 2.0), _round_up(n, 8))
+        bucket = (torch.zeros(n, dtype=torch.int64, device=dev) if n_bins == 1 else
+                  torch.randint(0, n_bins, (n,), dtype=torch.int64, device=dev, generator=gen))
+        if kernel:
+            def fn():
+                return shuffle.partition_packed(kv, n_bins, cap, bucket=bucket, payload=words)
+
+            _check_partition(torch, fn(), kv, bucket, words, n_bins, cap)
+        else:
+            def fn():
+                lanes, vals, ok, overflow, _ = shuffle.partition_to_bins(kv, n_bins, cap,
+                                                                         bucket=bucket)
+                packed = torch.cat([lanes, vals[..., None], ok[..., None].to(torch.int32)], -1)
+                return packed, overflow, words[vals.long()]
+        torch.cuda.synchronize()
+        wall = smoke.cuda_ms(torch, fn, reps=10, warmup=2)
+        # Every device op of 5 calls (the base's hidden reads rule out a
+        # copy as the marker that call_profile takes).
+        reps = 5
+
+        def calls():
+            for _ in range(reps):
+                fn()  # each call's outputs freed before the next: 19 GB at 4 bins
+
+        events = smoke.device_events(torch, calls)
+        split = {}
+        for e in events:
+            if KERNELS["partition_b1"] in e.name:
+                name = e.name.split("partition_")[1].split("_kernel")[0]
+                split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+        out[f"partition_b{n_bins}"] = {
+            "wall_ms": wall, "device_ops_per_call": len(events) / reps,
+            "device_ms": sum(e.time_range.elapsed_us() for e in events) / reps / 1e3,
+            "kernel_device_ms": sum(split.values()) if kernel else None,
+            "kernel_split_ms": split or None, "rows": n, "key_lanes": n_lanes,
+            "record_bytes": width, "n_bins": n_bins, "bin_capacity": cap}
+        del bucket
+    return out
+
+
+def _check_partition(torch, got, kv, bucket, words, n_bins, cap) -> None:
+    """The kernel's bins, overflow and filled slots' records against the
+    plain version's on the card."""
+    from locust_tpu_torch.ops.kernels import partition
+
+    bins, overflow, _, binned = got
+    rows, want_overflow, want_binned = partition._plain(bucket, kv.valid, kv.key_lanes,
+                                                        kv.values, n_bins, cap, 0, words)
+    if not torch.equal(bins.reshape(-1, bins.shape[-1]), rows) or int(overflow) != int(
+            want_overflow):
+        raise AssertionError(f"partition into {n_bins} bins: the kernel's bins differ "
+                             "from the plain version's")
+    del rows
+    filled = (bins[..., -1] != 0)[..., None]
+    if bool(((binned != want_binned) & filled).any()):
+        raise AssertionError(f"partition into {n_bins} bins: the kernel's records differ "
+                             "from the plain version's")
 
 
 def _gather_case(smoke, torch, name, grouping, ranks, inv_deg, init, want, edges) -> dict:
@@ -204,29 +312,46 @@ def _pagerank_g500(smoke, torch, np) -> dict:
     return {"pagerank_g500s24": row}
 
 
+def _partition_bound(row: dict) -> None:
+    """The partition's bytes bound at the row's shapes, and the kernel's
+    own time's share of it."""
+    from locust_tpu_torch.utils.roofline import partition_min_bytes
+
+    row["bound_ms"] = partition_min_bytes(
+        row["rows"], row["key_lanes"], row["n_bins"], row["bin_capacity"],
+        payload_bytes=row["record_bytes"]) / 3.35e9
+    own = row["kernel_device_ms"]
+    row["roofline_pct"] = None if not own else 100 * row["bound_ms"] / own
+
+
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--child":
-        print(json.dumps(_child(os.path.abspath(argv[1]))), flush=True)
+    if len(argv) >= 2 and argv[0] == "--child":
+        print(json.dumps(_child(os.path.abspath(argv[1]), argv[2:])), flush=True)
         return 0
-    if len(argv) != 2:
+    groups = argv[2:] or list(GROUPS)
+    if len(argv) < 2 or not set(groups) <= set(GROUPS):
         raise SystemExit(__doc__)
     roots = {"base": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])}
     runs = {"base": [], "new": []}
     for which in ("base", "new", "new", "base"):
         env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": roots[which]}
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[which]],
-                              env=env, capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[which],
+                               *groups], env=env, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"{which} run failed:\n{proc.stdout}\n{proc.stderr}")
         res = json.loads(proc.stdout.strip().splitlines()[-1])
+        for k in res:
+            if k.startswith("partition_"):
+                _partition_bound(res[k])
         runs[which].append(res)
         print(json.dumps({"run": which, **res}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
     mean = {which: {k: {m: None if any(r[k][m] is None for r in rs)
-                        else sum(r[k][m] for r in rs) / len(rs) for m in rs[0][k]}
-                    for k in KERNELS} for which, rs in runs.items()}
+                        else sum(r[k][m] for r in rs) / len(rs) for m in rs[0][k]
+                        if not isinstance(rs[0][k][m], dict)}
+                    for k in KERNELS if k in rs[0]} for which, rs in runs.items()}
     print(json.dumps({"card": smi, "mean_of_two_runs": mean}))
     return 0
 

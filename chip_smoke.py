@@ -117,7 +117,11 @@ oracle (kernel A once per rank and round); ``compile_plan(wordcount_plan(),
 cfg, mesh=True)`` in this process under ``bitonic`` and ``hasht``; and
 ``DistributedSort.sort_rows`` over >= 1 Mi of the corpus's tokens and
 ``sort_strings`` over a duplicate-heavy list retried once, in worlds of
-1 and 2, against numpy's lexsort.  PageRank adds in the CPU's order on the
+1 and 2, against numpy's lexsort.  Every shuffle of the mesh tier and the
+mesh apps (a WordCount or index round, each drain round, each
+``sort_rows``) launches the partition kernel (``csrc/partition.cu``) once
+per rank, and each process holds it against its plain version, slot for
+slot, at the first call of each shape.  PageRank adds in the CPU's order on the
 card (the gather-add kernel, ``csrc/pagerank.cu``): the card's
 ``pagerank`` CLI must print the CPU CLI's bytes, the pool's PageRank the
 solo engine's, and the kernel must equal its plain version (the CSR walk
@@ -952,7 +956,7 @@ def _counted(log_path: str, module: str) -> list[str]:
 COUNT_PLAIN_ENV = "CHIP_SMOKE_COUNT_PLAIN"
 
 
-KERNELS = ("tokenize", "bitonic_sort", "fused_fold", "pagerank")
+KERNELS = ("tokenize", "bitonic_sort", "fused_fold", "pagerank", "partition")
 
 
 class _Expected(dict):
@@ -971,12 +975,13 @@ class _Expected(dict):
 def kernel_wrappers() -> dict:
     """Each kernel of ``KERNELS``: its module, the name of its plain version
     there, and its wrapper (whose ``launches`` counts its launches)."""
-    from locust_tpu_torch.ops.kernels import fused_fold, pagerank, sort, tokenize
+    from locust_tpu_torch.ops.kernels import fused_fold, pagerank, partition, sort, tokenize
 
     return {"tokenize": (tokenize, "tokenize_reference", tokenize.tokenize_block_kernel),
             "bitonic_sort": (sort, "bitonic_reference", sort.bitonic_sort_rows),
             "fused_fold": (fused_fold, "fused_preagg_reference", fused_fold.fused_block_preagg),
-            "pagerank": (pagerank, "_plain", pagerank.gather_add)}
+            "pagerank": (pagerank, "_plain", pagerank.gather_add),
+            "partition": (partition, "_plain", partition.stable_partition)}
 
 
 def _card_in_use():
@@ -1048,6 +1053,60 @@ def _count_plain_versions(patch=setattr) -> None:
         patch(mod, ref, plain)
 
 
+_PARTITION_CHECKED: list | None = None
+
+
+def _check_partition_calls() -> list:
+    """Hold the partition kernel against its plain version on the CPU at
+    the first call of each shape in this process, exactly: every word of
+    the bins and the leftover, the overflow, and the payload in every
+    filled bin slot.  Installed once a process on ``parallel/shuffle``'s
+    reference to the wrapper, which every shuffle, index and sort path
+    calls; a CPU call passes through.  Returns the list each checked shape
+    (rows, lanes, bins, capacity, leftover capacity, payload words) goes
+    to."""
+    global _PARTITION_CHECKED
+    if _PARTITION_CHECKED is not None:
+        return _PARTITION_CHECKED
+    from locust_tpu_torch.ops.kernels import partition
+    from locust_tpu_torch.parallel import shuffle
+
+    checked, seen = [], set()
+    real, plain = shuffle.stable_partition, partition._plain
+
+    def checking(bucket, valid, lanes, values, n_bins, cap, lcap=0, payload=None):
+        out = real(bucket, valid, lanes, values, n_bins, cap, lcap, payload)
+        shape = (*lanes.shape, int(n_bins), int(cap), int(lcap),
+                 None if payload is None else int(payload.shape[1]))
+        if lanes.device.type != "cuda" or shape in seen:
+            return out
+        seen.add(shape)
+        want_rows, want_ovf, want_binned = plain(
+            *(t.cpu() for t in (bucket, valid, lanes, values)), *shape[2:5],
+            None if payload is None else payload.cpu())
+        rows, overflow, binned = out
+        ok = _same_tensor(rows, want_rows) and int(overflow) == int(want_ovf)
+        if payload is not None:
+            filled = want_rows[:shape[2] * shape[3], -1].reshape(shape[2], shape[3]) != 0
+            ok = ok and _same_tensor(binned.cpu()[filled], want_binned[filled])
+        if not ok:
+            raise AssertionError(f"the partition kernel differs from its plain version at "
+                                 f"{shape} (rows, lanes, bins, cap, leftover, payload words)")
+        checked.append(list(shape))
+        return out
+
+    shuffle.stable_partition = checking
+    _PARTITION_CHECKED = checked
+    return checked
+
+
+def _same_tensor(a, b) -> bool:
+    """``a`` (any device) equals ``b`` (CPU), shape, dtype and every element."""
+    import torch
+
+    return a.dtype == b.dtype and bool(torch.equal(a.cpu(), b))
+
+
 def _append_launch_line(log_path: str, fields: dict) -> None:
     # One ``write`` to a file opened for appending, so the lines of
     # concurrent processes do not interleave.
@@ -1102,13 +1161,15 @@ def _counted_child(log_path: str, module: str, args: list[str]) -> int:
         _log_worker_commands(log_path, module, args, mod.Worker)
         return mod.main(args)
     extra = {}
+    if "--mesh" in args or "--slices" in args or entry == "sort_world":
+        extra["partition_checked"] = _check_partition_calls()
     with contextlib.ExitStack() as stack:
         if "--mesh" in args or "--slices" in args:
             extra["mesh"] = stack.enter_context(_mesh_recorder())
         try:
             return getattr(mod, entry or "main")(args)
         finally:
-            if extra:
+            if "mesh" in extra:
                 from locust_tpu_torch.parallel.mesh import COMM
 
                 extra["comm"] = COMM
@@ -1120,10 +1181,19 @@ def _counted_child(log_path: str, module: str, args: list[str]) -> int:
 def _mesh_recorder():
     """Record every mesh result built while it is open: its kernel mode,
     demotion, flagged re-folds, drain rounds, and the rank, world size and
-    backend of its mesh.  Yields the list the records go to."""
+    backend of its mesh; and each round of ``index --mesh``: its drain
+    rounds (the round's stats, read on the host).  Yields the list the
+    records go to."""
+    from locust_tpu_torch.apps.inverted_index import DistributedInvertedIndex
     from locust_tpu_torch.parallel import shuffle
 
     records, real = [], shuffle.DistributedResult.__init__
+    real_step = DistributedInvertedIndex._step
+
+    def index_step(self, *a, **k):
+        acc, leftover, stats = real_step(self, *a, **k)
+        records.append({"index_drain_rounds": int(stats[4]), "rank": self.mesh.rank})
+        return acc, leftover, stats
 
     def init(self, *a, **k):
         real(self, *a, **k)
@@ -1134,10 +1204,12 @@ def _mesh_recorder():
                         "axes": dict(m.shape), "device": str(m.device)})
 
     shuffle.DistributedResult.__init__ = init
+    DistributedInvertedIndex._step = index_step
     try:
         yield records
     finally:
         shuffle.DistributedResult.__init__ = real
+        DistributedInvertedIndex._step = real_step
 
 
 def _start_worker(env, name: str, plan: dict | None = None):
@@ -1586,7 +1658,7 @@ def serve_phase(env) -> dict:
     # bucket; a solo job 1 block; the plan job one sort per block of its
     # 8; "hash" nothing.
     want_launches = {
-        "tokenize": 0, "pagerank": 0,
+        "tokenize": 0, "pagerank": 0, "partition": 0,
         "bitonic_sort": bucket_blocks(4) + bucket_blocks(2) + big_bucket[0]
         + bucket_blocks(2) + 2 + 8,
         "fused_fold": bucket_blocks(4) + bucket_blocks(2) + big_bucket[1] + bucket_blocks(2)
@@ -2177,6 +2249,7 @@ def pool_phase(env) -> dict:
             "fused_fold": 2 + 2 * sum(bucket_blocks(-(-(b - a) // BL)) for a, b in plan_ranges),
             # One gather-add per rank shard and epoch of the PageRank plan.
             "pagerank": pr_epochs * pr_shards,
+            "partition": 0,
         }
         mem = {}
         for ln in lines:
@@ -2259,7 +2332,7 @@ def pool_phase(env) -> dict:
                     p.wait(timeout=30)
         got_f, _ = launches()
         want_f = {"tokenize": 0, "bitonic_sort": bucket_blocks(big_blocks), "fused_fold": 0,
-                  "pagerank": 0}
+                  "pagerank": 0, "partition": 0}
         env.by_path["failover"] = got_f
         report["failover"] = {"standby_start_s": standby_s, "primary_start_s": primary_s,
                               "lease_s": lease, "kill_to_promoted_s": promote_s,
@@ -2323,6 +2396,13 @@ def _mesh_env() -> dict:
                 PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
 
 
+def _check_partition_lines(name: str, lines: list, on_card: bool) -> None:
+    """On the card, every process of a world that launched the partition
+    kernel held it against its plain version at least once."""
+    if on_card and any(ln["partition"] and not ln.get("partition_checked") for ln in lines):
+        raise AssertionError(f"{name}: a process launched the partition kernel unchecked")
+
+
 def mesh_phase(env) -> dict:
     """The mesh tier on the card (``locust_tpu_torch.parallel``), WordCount
     through the CLI at its defaults over the corpus file:
@@ -2342,10 +2422,14 @@ def mesh_phase(env) -> dict:
     equal the prediction: per rank and round kernel A once and kernel B
     twice (the local combine and the merge, once more per drain round)
     under ``bitonic``, kernel C once under ``fused``; the hierarchical
-    combine one more sort per rank."""
+    combine one more sort per rank; and under every mode the partition
+    kernel once per rank and shuffle round, drain rounds included.  On
+    the card each process holds the partition kernel against its plain
+    version at the first call of each shape (``_check_partition_calls``)."""
     from locust_tpu_torch.parallel.mesh import COMM
 
     on_card = env.dev.type == "cuda"
+    checked = _check_partition_calls() if on_card else []
     BL, n_lines = env.BL, len(env.lines)
     work = os.path.join(env.work, "mesh")
     os.makedirs(work, exist_ok=True)
@@ -2360,12 +2444,13 @@ def mesh_phase(env) -> dict:
                 refolds: int = 0, from_round: int = 0, counted: int | None = None) -> dict:
         """Launches of ``counted`` ranks (all ``world`` by default)."""
         r, k = rounds(world) - from_round, world if counted is None else counted
+        shuffles = {"partition": k * (r + drains)}
         if mode == "fused" and on_card:
-            return {"tokenize": refolds, "fused_fold": k * r}
+            return {"tokenize": refolds, "fused_fold": k * r, **shuffles}
         if mode == "fused":  # a CPU rank demotes to hasht: the map, no sort
-            return {"tokenize": k * r}
+            return {"tokenize": k * r, **shuffles}
         return {"tokenize": k * r,
-                "bitonic_sort": k * (2 * r + drains) + (k if slices else 0)}
+                "bitonic_sort": k * (2 * r + drains) + (k if slices else 0), **shuffles}
 
     def check(name, stdout, got, want):
         env.by_path[name] = got
@@ -2429,6 +2514,7 @@ def mesh_phase(env) -> dict:
                                           sum(r["fused_refolds"] for r in recs), from_round))
         if any(o for o in outs[1:]):
             raise AssertionError(f"mesh {name}: a rank other than 0 printed")
+        _check_partition_lines(name, lines, on_card)
         backend = "nccl" if on_card and n <= env.torch.cuda.device_count() else "gloo"
         for r in recs:
             if r["backend"] != backend or r["size"] != n or r["drain_rounds"] != drains or (
@@ -2446,7 +2532,8 @@ def mesh_phase(env) -> dict:
                "all_to_all_ms_per_round_per_rank": [
                    1e3 * c["s"] / max(c["calls"], 1) for c in a2a],
                "all_gather_bytes_per_rank": [ln["comm"]["all_gather"]["bytes"] for ln in lines],
-               "max_memory_reserved_by_process": [ln.get("max_memory_reserved") for ln in lines]}
+               "max_memory_reserved_by_process": [ln.get("max_memory_reserved") for ln in lines],
+               "partition_shapes_checked": [ln.get("partition_checked") for ln in lines]}
         report[name] = row
         log(f"  {name}: {n} processes ({row['backend']}, axes {row['axes']}), {per_round} "
             f"rounds, drains {drains}, stdout == single-device CLI, {wall:.3f} s; launches "
@@ -2484,6 +2571,11 @@ def mesh_phase(env) -> dict:
         world_run("mesh_hier_2x1", 2, "bitonic", ["--slices", "2"], slices=2)
         world_run("mesh_hier_2x2", 4, "bitonic", ["--slices", "2"], slices=2)
     report["comm_in_this_process"] = COMM
+    report["partition_shapes_checked_in_this_process"] = list(checked)
+    if on_card and not checked:
+        raise AssertionError("the mesh: no partition call on the card was checked")
+    log(f"  the partition kernel == its plain version at {len(checked)} shape(s) in this "
+        f"process: {checked}")
     return report
 
 
@@ -2589,15 +2681,22 @@ def mesh_apps_phase(env) -> dict:
        walk at int32 and int64, with its times and bounds;
     2. ``index --mesh`` over the corpus file, one document per block, in
        worlds of 1 and 2: the oracle's bytes, kernel A once per rank and
-       round;
+       round, the partition kernel once per rank and shuffle round (drain
+       rounds included);
     3. ``compile_plan(wordcount_plan(), cfg, mesh=True)`` in this process
        under ``bitonic`` (kernels A and B) and ``hasht`` (rewritten to
-       ``fused``: kernel C per round): the CLI's bytes;
+       ``fused``: kernel C per round): the CLI's bytes; the partition
+       kernel once per shuffle round;
     4. ``DistributedSort.sort_rows`` over >= 1 Mi of the corpus's tokens
        and ``sort_strings`` over a duplicate-heavy list that overflows once
        and is retried, in a world of 1 in this process and of 2 processes:
        keys in numpy's lexsort order, each run of equal keys with its
-       values as a multiset."""
+       values as a multiset; the partition kernel once per rank and
+       ``sort_rows`` call.
+
+    On the card every process holds the partition kernel against its
+    plain version at the first call of each shape
+    (``_check_partition_calls``)."""
     from locust_tpu_torch.apps.pagerank import DistributedPageRank, ShardedPageRank
     from locust_tpu_torch.apps.sample_sort import DistributedSort, sort_strings
     from locust_tpu_torch.config import EngineConfig
@@ -2619,10 +2718,12 @@ def mesh_apps_phase(env) -> dict:
     report = {"card": env.smi}
     cpu_threads = max(1, (os.cpu_count() or 2) // 2)
     iters = 20
+    checked = _check_partition_calls() if on_card else []
 
     def world(name, n, argv, cpu=False, module="locust_tpu_torch.cli"):
         """A world of ``n`` processes; its rank 0's stdout, the launches
-        summed over its processes and its wall seconds."""
+        summed over its processes and its wall seconds (and the launch
+        lines, in ``world.lines``)."""
         rcs, outs, lines, wall = _mesh_world(env, name, n, argv, log_path, module=module,
                                              threads=max(1, cpu_threads // n) if cpu else None)
         if rcs != [0] * n or len(lines) != n:
@@ -2633,6 +2734,8 @@ def mesh_apps_phase(env) -> dict:
             raise AssertionError(f"{name}: exit codes {rcs}, {len(lines)} launch lines: {errs}")
         if any(o for o in outs[1:]):
             raise AssertionError(f"{name}: a rank other than 0 printed")
+        _check_partition_lines(name, lines, on_card)
+        world.lines = lines
         return outs[0], {k: sum(ln[k] for ln in lines) for k in KERNELS}, wall
 
     def check(name, got, want):
@@ -2834,18 +2937,24 @@ def mesh_apps_phase(env) -> dict:
             name = f"mesh_index_w{w}"
             t0 = time.perf_counter()
             if w == cards:
-                out = env.run_cli(name, argv + env.cli_extra)
+                with _mesh_recorder() as recs:
+                    out = env.run_cli(name, argv + env.cli_extra)
                 got, ranks_counted = env.by_path[name], 1
             else:
                 out, got, _ = world(name, w, argv + env.cli_extra)
                 ranks_counted = w
+                recs = [r for ln in world.lines for r in ln["mesh"]]
             wall = time.perf_counter() - t0
-            check(name, got, {"tokenize": rounds(w) * ranks_counted})
+            # Each rank's drain rounds, summed over the ranks counted.
+            drains = sum(r["index_drain_rounds"] for r in recs)
+            check(name, got, {"tokenize": rounds(w) * ranks_counted,
+                              "partition": rounds(w) * ranks_counted + drains})
             if out != want:
                 raise AssertionError(f"{name}: stdout differs from the oracle")
-            idx[f"w{w}"] = {"wall_s": wall, "rounds": rounds(w), "launches": got}
+            idx[f"w{w}"] = {"wall_s": wall, "rounds": rounds(w), "drain_rounds": drains,
+                            "launches": got}
             log(f"  world of {w}: stdout == oracle == the single-device index ({len(out)} "
-                f"bytes), {rounds(w)} rounds, {wall:.3f} s; launches {got}")
+                f"bytes), {rounds(w)} rounds, drains {drains}, {wall:.3f} s; launches {got}")
         report["index"] = idx
 
     # ---- 3. the compiled mesh plan
@@ -2871,7 +2980,7 @@ def mesh_apps_phase(env) -> dict:
                 want_counts = {"fused_fold": r1, "tokenize": r["fused_refolds"]}
             else:  # a CPU rank demotes fused to hasht: the map, no sort
                 want_counts = {"tokenize": r1}
-            check(name, got, want_counts)
+            check(name, got, {**want_counts, "partition": r1 + r["drain_rounds"]})
             if res.output != env.want:
                 raise AssertionError(f"{name}: the plan's output differs from the CLI's")
             plans[mode] = {"wall_s": wall, "launches": got, **r}
@@ -2906,7 +3015,8 @@ def mesh_apps_phase(env) -> dict:
             mesh_mod.shutdown()
         srt["w1"] = {"wall_s": time.perf_counter() - t0, "launches": got,
                      **_check_sort("sort_w1", out, rows, dups)}
-        check("mesh_sort_w1", got, {})
+        # sort_rows once, then each attempt of sort_strings: one partition each.
+        check("mesh_sort_w1", got, {"partition": 1 + len(srt["w1"]["attempt_overflows"])})
         t0 = time.perf_counter()
         _, got, _ = world("mesh_sort_w2", 2, [work, "cuda" if on_card else "cpu"],
                           module="chip_smoke:sort_world")
@@ -2914,13 +3024,18 @@ def mesh_apps_phase(env) -> dict:
             out = {k: z[k] for k in z.files}
         srt["w2"] = {"wall_s": time.perf_counter() - t0, "launches": got,
                      **_check_sort("sort_w2", out, rows, dups)}
-        check("mesh_sort_w2", got, {})
+        check("mesh_sort_w2", got, {"partition": 2 * (1 + len(srt["w2"]["attempt_overflows"]))})
         for w in ("w1", "w2"):
             log(f"  world of {w[1]}: {rows.shape[0]} rows sorted == numpy's lexsort, each run's "
                 f"values the same multiset; sort_strings: overflows by attempt "
                 f"{srt[w]['attempt_overflows']} (one retry), == numpy's order; "
                 f"{srt[w]['wall_s']:.3f} s")
         report["sort"] = srt
+    report["partition_shapes_checked_in_this_process"] = list(checked)
+    if on_card and not checked:
+        raise AssertionError("the mesh apps: no partition call on the card was checked")
+    log(f"  the partition kernel == its plain version at {len(checked)} shape(s) in this "
+        f"process so far: {checked}")
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"  the mesh apps' phase: {report['phase_s']:.1f} s")
     return report
@@ -3997,6 +4112,13 @@ def main() -> int:
          "launches_by_path": {p: c.get("pagerank", 0) for p, c in by_path.items()},
          **pagerank_report["kernel"],
          "mesh_slots": mesh_apps_report["pagerank"]["gather_add_world2"]},
+        {"name": "partition", "route": "cuda", "status": "port-only",
+         "source": "locust_tpu_torch/csrc/partition.cu",
+         "replaces": "torch sort, bincount, index_put_ and cat (parallel/shuffle.py)",
+         "launches": by_path["mesh_w1_bitonic"]["partition"],
+         "launches_by_path": {p: c.get("partition", 0) for p, c in by_path.items()},
+         "shapes_checked_in_process": mesh_apps_report[
+             "partition_shapes_checked_in_this_process"]},
     ], "run_fused_mb_s": mode_mbs, "run_stream_mb_s": stream_mbs,
        "run_stream_busy_share": stream_busy, "apps_mb_s": app_mbs,
        "pagerank": pagerank_report, "zipf_run_stream": zipf_report,

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "locust_tpu_torch"
-KERNEL_SOURCES = ("tokenize", "bitonic", "fused_fold", "pagerank")
+KERNEL_SOURCES = ("tokenize", "bitonic", "fused_fold", "pagerank", "partition")
 HOST_SOURCES = ("ingest",)
 HOST_FLAGS = ("-O3", "-shared", "-fPIC")
 NVCC_FLAGS = (

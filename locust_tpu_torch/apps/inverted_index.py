@@ -215,13 +215,13 @@ class DistributedInvertedIndex:
         """One partition + all-to-all + dedup-merge; feed and drain share
         it.  Returns ``(acc, leftover, shuffle overflow, distinct pairs,
         this rank's backlog)``, the counts int32 scalars on the device."""
-        from locust_tpu_torch.parallel.shuffle import exchange_bins, partition_to_bins
+        from locust_tpu_torch.parallel.shuffle import exchange_bins, partition_packed
 
-        s_lanes, s_vals, s_valid, shuf_ovf, new_left = partition_to_bins(
+        bins, shuf_ovf, new_left, _ = partition_packed(
             KVBatch.concat(local, leftover), self.n_dev, self.bin_capacity,
             leftover_capacity=self.leftover_capacity,
         )
-        received = exchange_bins(self.mesh, self.axis, s_lanes, s_vals, s_valid)
+        received = exchange_bins(self.mesh, self.axis, bins)
         merged, n_pairs = _dedup_sorted_pairs(_sort_pairs(KVBatch.concat(acc, received)))
         cap = self.pairs_capacity
         new_acc = KVBatch(merged.key_lanes[:cap], merged.values[:cap], merged.valid[:cap])

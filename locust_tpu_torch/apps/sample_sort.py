@@ -17,10 +17,10 @@ recipe:
 Rank d then holds range shard d, internally sorted, and every key on rank
 d precedes every key on rank d+1: a globally sorted sequence.
 ``sort_records`` sorts whole fixed-width records by a key prefix (the
-TeraSort record sort): the record bytes travel in the range shuffle
-beside their keys, in one more all-to-all, and are gathered into key
-order after the local sort.  A bin holds at most a rank's own rows, so
-it is capped there.  Skewed
+TeraSort record sort): the partition writes the record bytes into the
+bins beside their keys, one more all-to-all moves them, and they are
+gathered into key order after the local sort.  A bin holds at most a
+rank's own rows, so it is capped there.  Skewed
 inputs (duplicate-heavy keys) can overflow a range bin; the overflow is
 counted and summed over the ranks (an integer, exact in any order), and
 ``sort_strings`` retries with doubled bins.  The sorts are stable torch
@@ -53,7 +53,7 @@ from locust_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, scatter_host_array, 
 from locust_tpu_torch.parallel.shuffle import (
     exchange_bins,
     gather_batch_host,
-    partition_to_bins,
+    partition_packed,
     sized_bins,
 )
 
@@ -124,19 +124,19 @@ class DistributedSort:
               records: torch.Tensor | None = None):
         """This rank's body: sample, range shuffle, local sort.  Returns
         its sorted shard, the overflow summed over the ranks and, given
-        ``records`` (rows that ``values`` index), the rows this rank
+        ``records`` (one row for each of the batch's), the rows this rank
         received, sender-major, which the shard's values then index."""
         kv = KVBatch.from_bytes(keys_rows, values, valid)
         with obs.span("sample_sort.sample"):
             splitters = self._splitters(kv.key_lanes, valid)
         with obs.span("sample_sort.partition"):
             bucket = packing.lanes_geq_table(kv.key_lanes, splitters).sum(dim=-1)  # [N] in [0, n)
-            s_lanes, s_vals, s_valid, overflow, _ = partition_to_bins(
-                kv, self.n_dev, self.bin_capacity, bucket=bucket)
-            received = exchange_bins(self.mesh, self.axis, s_lanes, s_vals, s_valid)
+            bins, overflow, _, binned = partition_packed(
+                kv, self.n_dev, self.bin_capacity, bucket=bucket, payload=records)
+            received = exchange_bins(self.mesh, self.axis, bins)
             moved = None
             if records is not None:
-                moved = self.mesh.all_to_all(records[s_vals.long()], self.axis).flatten(0, 1)
+                moved = self.mesh.all_to_all(binned, self.axis).flatten(0, 1)
                 received = KVBatch(received.key_lanes, torch.arange(
                     received.size, dtype=torch.int32, device=moved.device), received.valid)
         with obs.span("sample_sort.local"):
@@ -192,11 +192,12 @@ class DistributedSort:
         if n > self.rows_per_device:
             raise ValueError(f"{n} records > rows_per_device {self.rows_per_device}")
         obs.metric_inc("sample_sort.rows", n)
-        keys = torch.zeros((self.rows_per_device, self.cfg.key_width), dtype=torch.uint8,
-                           device=dev)
+        # The partition takes each row's record beside it, so the batch has
+        # the records' rows; an empty rank sorts one invalid row.
+        rows = max(n, 1)
+        keys = torch.zeros((rows, self.cfg.key_width), dtype=torch.uint8, device=dev)
         keys[:n, :key_bytes] = records[:, :key_bytes]
-        index = torch.arange(self.rows_per_device, dtype=torch.int32, device=dev)
-        # An empty rank still gathers its (invalid) bin slots from one row.
+        index = torch.arange(rows, dtype=torch.int32, device=dev)
         words = _record_words(records if n else records.new_zeros((1, width)))
         table, overflow, received = self._step(keys, index, index < n, words)
         overflow, m = _host_ints(overflow, table.num_valid())

@@ -12,7 +12,7 @@ rank per process (parallel/mesh.py).  Each round, every rank:
   2. hash-partitions the combined rows (``fold_hash % n``) into
      equal-capacity bins, the overspill into a leftover buffer;
   3. exchanges the bins with ONE ``all_to_all_single`` (lanes, values and
-     valid packed in one int32 tensor);
+     valid packed in one int32 tensor, as the partition writes them);
   4. folds what it received into its shard of the table (``fold_into``;
      kernel B under ``bitonic``);
   5. drains the leftover in further all-to-all rounds until every rank's
@@ -51,6 +51,7 @@ from locust_tpu_torch.ops.hash_table import (
     reduce_into,
     scatter_impl_for,
 )
+from locust_tpu_torch.ops.kernels.partition import stable_partition
 from locust_tpu_torch.ops.map_stage import wordcount_map
 from locust_tpu_torch.ops.reduce_stage import normalize_combine
 from locust_tpu_torch.parallel.mesh import (
@@ -328,73 +329,55 @@ class RoundStats:
         self._on_sync(st)
 
 
-def partition_to_bins(batch: KVBatch, n_bins: int, bin_capacity: int,
-                      bucket: torch.Tensor | None = None, leftover_capacity: int = 0):
-    """Scatter a batch into ``[n_bins, bin_capacity]`` bins by key hash.
+def partition_packed(batch: KVBatch, n_bins: int, bin_capacity: int,
+                     bucket: torch.Tensor | None = None, leftover_capacity: int = 0,
+                     payload: torch.Tensor | None = None):
+    """Scatter a batch into ``[n_bins, bin_capacity]`` bins by key hash,
+    packed as the all-to-all sends them.
 
     ``bucket`` overrides the destination (``[N]`` in ``[0, n_bins)``);
     by default it is ``fold_hash(lanes) % n_bins`` on the unsigned value.
-    Rows group by bin with a stable sort, so a bin keeps the rows' input
-    order; live rows past their bin's capacity go to a compacted leftover
-    buffer of ``leftover_capacity`` rows (re-shuffled by the caller), and
-    those that fit neither are counted in ``overflow``: true loss.
+    A bin keeps its rows' input order; live rows past their bin's
+    capacity go to a compacted leftover buffer of ``leftover_capacity``
+    rows (re-shuffled by the caller), and those that fit neither are
+    counted in ``overflow``: true loss.  ``payload`` (``[N, W]``, with no
+    leftover) travels beside the rows into the same slots.  One pass of
+    ``ops/kernels/partition.stable_partition``: the kernel on a CUDA
+    batch, its plain version on a CPU one.
 
-    Returns ``(lanes [B, C, L], values [B, C], valid [B, C], overflow,
-    leftover)``, ``overflow`` an int32 scalar tensor.
+    Returns ``(bins, overflow, leftover, binned)``: ``bins`` int32
+    ``[B, C, L + 2]`` (lanes, value, a valid word), ``overflow`` an int32
+    scalar tensor, ``leftover`` a ``KVBatch`` of ``leftover_capacity``
+    rows, ``binned`` the payload's ``[B, C, W]`` or None.
     """
-    lanes, values, valid = batch.key_lanes, batch.values, batch.valid
-    n, n_lanes = lanes.shape
-    dev = lanes.device
+    lanes = batch.key_lanes
     if bucket is None:
         bucket = packing.fold_hash(lanes) % n_bins
-    bucket = torch.where(valid, bucket.to(torch.int64), n_bins)  # invalid -> sentinel bin
-    sb, sidx = torch.sort(bucket, stable=True)
-    slanes, svals = lanes[sidx], values[sidx]
-    svalid = sb < n_bins
-
-    counts = torch.bincount(sb, minlength=n_bins + 1)
-    offsets = torch.cumsum(counts, 0) - counts
-    within = torch.arange(n, device=dev) - offsets[sb]
-    ok = svalid & (within < bin_capacity)
-    spill = svalid & (within >= bin_capacity)
-    flat = n_bins * bin_capacity
-    dest = (torch.where(ok, sb * bin_capacity + within, flat),)
-    out_lanes = torch.zeros((flat + 1, n_lanes), dtype=lanes.dtype, device=dev)
-    out_lanes.index_put_(dest, slanes)
-    out_vals = torch.zeros((flat + 1,), dtype=svals.dtype, device=dev)
-    out_vals.index_put_(dest, svals)
-    out_valid = torch.zeros((flat + 1,), dtype=torch.bool, device=dev)
-    out_valid.index_put_(dest, ok)
-
-    # Spilled rows compact into the leftover buffer (row lcap = dump).
-    lcap = leftover_capacity
-    lrank = torch.cumsum(spill.to(torch.int32), 0, dtype=torch.int32) - 1
-    kept = spill & (lrank < lcap)
-    ldest = (torch.where(kept, lrank, lcap).long(),)
-    left_lanes = torch.zeros((lcap + 1, n_lanes), dtype=lanes.dtype, device=dev)
-    left_lanes.index_put_(ldest, slanes)
-    left_vals = torch.zeros((lcap + 1,), dtype=svals.dtype, device=dev)
-    left_vals.index_put_(ldest, svals)
-    left_valid = torch.zeros((lcap + 1,), dtype=torch.bool, device=dev)
-    left_valid.index_put_(ldest, kept)
-    overflow = (spill & (lrank >= lcap)).sum(dtype=torch.int32)
-    return (
-        out_lanes[:flat].reshape(n_bins, bin_capacity, n_lanes),
-        out_vals[:flat].reshape(n_bins, bin_capacity),
-        out_valid[:flat].reshape(n_bins, bin_capacity),
-        overflow,
-        KVBatch(left_lanes[:lcap], left_vals[:lcap], left_valid[:lcap]),
-    )
+    rows, overflow, binned = stable_partition(bucket, batch.valid, lanes, batch.values, n_bins,
+                                              bin_capacity, leftover_capacity, payload)
+    n_lanes, flat = lanes.shape[1], n_bins * bin_capacity
+    left = rows[flat:]
+    return (rows[:flat].reshape(n_bins, bin_capacity, n_lanes + 2), overflow,
+            KVBatch(left[:, :n_lanes], left[:, n_lanes], left[:, n_lanes + 1] != 0), binned)
 
 
-def exchange_bins(mesh: Mesh, axis: str, lanes: torch.Tensor, values: torch.Tensor,
-                  valid: torch.Tensor) -> KVBatch:
-    """One all-to-all of ``partition_to_bins``' bins along ``axis`` (lanes,
-    values and valid packed in one int32 tensor): bin ``i`` goes to the
-    ``i``-th rank; returns what this rank received, sender-major."""
-    n_lanes = lanes.shape[-1]
-    packed = torch.cat([lanes, values[..., None], valid[..., None].to(torch.int32)], dim=-1)
-    recv = mesh.all_to_all(packed, axis).reshape(-1, n_lanes + 2)
+def partition_to_bins(batch: KVBatch, n_bins: int, bin_capacity: int,
+                      bucket: torch.Tensor | None = None, leftover_capacity: int = 0):
+    """``partition_packed``'s bins in the JAX package's form: ``(lanes [B,
+    C, L], values [B, C], valid [B, C], overflow, leftover)``, the lanes
+    and values views of the packed bins."""
+    bins, overflow, leftover, _ = partition_packed(batch, n_bins, bin_capacity, bucket,
+                                                   leftover_capacity)
+    n_lanes = bins.shape[-1] - 2
+    return bins[..., :n_lanes], bins[..., n_lanes], bins[..., n_lanes + 1] != 0, overflow, leftover
+
+
+def exchange_bins(mesh: Mesh, axis: str, bins: torch.Tensor) -> KVBatch:
+    """One all-to-all of ``partition_packed``'s bins along ``axis``: bin
+    ``i`` goes to the ``i``-th rank; returns what this rank received,
+    sender-major."""
+    n_lanes = bins.shape[-1] - 2
+    recv = mesh.all_to_all(bins, axis).reshape(-1, n_lanes + 2)
     return KVBatch(recv[:, :n_lanes], recv[:, n_lanes], recv[:, n_lanes + 1] != 0)
 
 
@@ -474,11 +457,11 @@ class ShuffleStep:
         ``(acc, leftover, local)``: ``local`` is ``carry`` (``[0, 0,
         shuffle overflow so far, map overflow]``) plus this rank's backlog,
         distinct count and this round's shuffle overflow."""
-        s_lanes, s_vals, s_valid, shuf_ovf, new_left = partition_to_bins(
+        bins, shuf_ovf, new_left, _ = partition_packed(
             KVBatch.concat(table_in, leftover), self.n_bins, self.bin_capacity,
             leftover_capacity=self.leftover_capacity,
         )
-        received = exchange_bins(self.mesh, self.shuffle_axis, s_lanes, s_vals, s_valid)
+        received = exchange_bins(self.mesh, self.shuffle_axis, bins)
         new_acc, distinct = fold_into(acc, received, self.shard_capacity, self.combine,
                                       self.cfg.sort_mode)
         local = torch.stack([new_left.valid.sum(dtype=torch.int32), distinct.to(torch.int32),

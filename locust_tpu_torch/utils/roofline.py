@@ -199,6 +199,22 @@ def pagerank_gather_min_ops(num_edges: int, weighted: bool = True) -> int:
     return (2 if weighted else 1) * num_edges
 
 
+def partition_min_bytes(rows: int, key_lanes: int, n_bins: int, bin_capacity: int,
+                        leftover_capacity: int = 0, payload_bytes: int = 0,
+                        bucket_bytes: int = 8) -> int:
+    """The shuffle's stable counting partition (``csrc/partition.cu``): each
+    row's bucket and valid byte read twice (its bin is counted before its
+    rank is known), its lanes, value and ``payload_bytes`` read once;
+    every output row written once as ``key_lanes + 2`` int32 words (the
+    bins' and the leftover's, empty slots included) and each row's
+    payload written once into its slot (an empty slot's payload is not
+    written).  Rows that land nowhere are counted as landing: the bound
+    of a partition whose valid rows all fit."""
+    per_row_in = 2 * (bucket_bytes + 1) + 4 * key_lanes + 4 + payload_bytes
+    slots = n_bins * bin_capacity + leftover_capacity
+    return rows * per_row_in + slots * 4 * (key_lanes + 2) + rows * payload_bytes
+
+
 # Cycles from one float32 add to the next that depends on it (Hopper's
 # FP32 pipe latency).
 FADD_DEPENDENT_CYCLES = 4

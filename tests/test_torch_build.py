@@ -180,6 +180,7 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
     from locust_tpu_torch.distributor import worker
     from locust_tpu_torch.ops.kernels.fused_fold import fused_block_preagg
     from locust_tpu_torch.ops.kernels.pagerank import gather_add
+    from locust_tpu_torch.ops.kernels.partition import stable_partition
     from locust_tpu_torch.ops.kernels.sort import bitonic_sort_rows
     from locust_tpu_torch.ops.kernels.tokenize import tokenize_block_kernel
 
@@ -191,6 +192,7 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
     monkeypatch.setattr(bitonic_sort_rows, "launches", 5)
     monkeypatch.setattr(fused_block_preagg, "launches", 7)
     monkeypatch.setattr(gather_add, "launches", 11)
+    monkeypatch.setattr(stable_partition, "launches", 13)
     argv = [str(corpus), "--backend", "cpu", "--no-timing"]
     for _ in range(2):
         assert smoke._counted_child(log, "locust_tpu_torch.cli", argv) == 0
@@ -198,7 +200,8 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
     with open(log) as f:
         lines = [json.loads(x) for x in f]
     assert lines == [{"module": "locust_tpu_torch.cli", "argv": argv, "pid": os.getpid(),
-                      "tokenize": 3, "bitonic_sort": 5, "fused_fold": 7, "pagerank": 11}] * 2
+                      "tokenize": 3, "bitonic_sort": 5, "fused_fold": 7, "pagerank": 11,
+                      "partition": 13}] * 2
     monkeypatch.setattr(worker, "MAP_COMMAND", worker.MAP_COMMAND)
     monkeypatch.setattr(worker, "main", lambda args: 0)
     monkeypatch.setattr(worker.Worker, "_handle", worker.Worker._handle)
@@ -220,10 +223,12 @@ def test_chip_smoke_counted_child_appends_its_launches(tmp_path, monkeypatch, ca
         lines = [json.loads(x) for x in f][2:]
     assert lines == [{"module": "locust_tpu_torch.distributor.worker", "argv": ["--serve"],
                       "pid": os.getpid(), "cmd": "ping", "tokenize": 3, "bitonic_sort": 5,
-                      "fused_fold": 7, "pagerank": 11, "max_memory_reserved": None},
+                      "fused_fold": 7, "pagerank": 11, "partition": 13,
+                      "max_memory_reserved": None},
                      {"module": "locust_tpu_torch.distributor.worker", "argv": ["--serve"],
                       "pid": os.getpid(), "cmd": "ping", "tokenize": 0, "bitonic_sort": 4,
-                      "fused_fold": 0, "pagerank": 0, "max_memory_reserved": None}]
+                      "fused_fold": 0, "pagerank": 0, "partition": 0,
+                      "max_memory_reserved": None}]
 
 
 def _top_imports(path: str) -> set:

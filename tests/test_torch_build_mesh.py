@@ -37,7 +37,8 @@ def test_chip_smoke_mesh_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     r2 = -(-len(lines) // (2 * bl))
     assert report["w1_fused"]["fused_kernel"] is None and report["w1_fused"]["fused_demoted"]
     assert report["mesh_w2_bitonic"]["launches"] == {
-        "tokenize": 2 * r2, "bitonic_sort": 4 * r2, "fused_fold": 0, "pagerank": 0}
+        "tokenize": 2 * r2, "bitonic_sort": 4 * r2, "fused_fold": 0, "pagerank": 0,
+        "partition": 2 * r2}
     assert report["mesh_w2_fused"]["launches"]["fused_fold"] == 0  # demoted on the CPU
     assert report["mesh_w2_resumed"]["launches"]["tokenize"] == 2 * (r2 - 2)
     assert report["mesh_hier_2x2"]["axes"] == {"slice": 2, "data": 2}

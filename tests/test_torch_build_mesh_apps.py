@@ -6,7 +6,8 @@ gather-adds per rank and iteration; the gather-add at a world of 2's two
 index spaces against the CSR walk; ``index --mesh`` in worlds of 1 and 2
 against the oracle; the compiled mesh WordCount plan under ``bitonic``
 and ``hasht``; and the sample sort in worlds of 1 and 2 against numpy's
-lexsort, with one retry of ``sort_strings``."""
+lexsort, with one retry of ``sort_strings``; the partition's plain
+version counted once per rank and shuffle round."""
 
 import torch_threads  # noqa: F401 - first: one torch thread per test process
 
@@ -59,6 +60,9 @@ def test_chip_smoke_mesh_apps_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     assert shapes["send"]["rows"] != shapes["send"]["sources"]
     assert shapes["send"]["weighted"] and not shapes["receive"]["weighted"]
     assert report["index"]["w2"]["launches"]["tokenize"] == 2 * -(-len(lines) // (2 * bl))
+    assert report["index"]["w2"]["launches"]["partition"] == (
+        2 * -(-len(lines) // (2 * bl)) + report["index"]["w2"]["drain_rounds"])
+    assert report["sort"]["w2"]["launches"]["partition"] == 2 * (1 + 2)  # sort_rows, 2 attempts
     assert report["plan"]["hasht"]["fused_demoted"]  # a CPU rank demotes fused
     assert report["sort"]["w2"]["attempt_overflows"][1] == 0
     assert os.path.exists(tmp_path / "mesh_apps" / "sorted.npz")

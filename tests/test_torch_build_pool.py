@@ -37,7 +37,7 @@ def test_chip_smoke_pool_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     # PageRank gather-add per rank shard and epoch (2 shards, 3 epochs).
     assert report["launches"] == report["expected_launches"] == {
         "tokenize": 0, "bitonic_sort": 2 + 4 + 4 + 1 + 2 * 4 + 1, "fused_fold": 2 + 2 * 4,
-        "pagerank": 2 * 3}
+        "pagerank": 2 * 3, "partition": 0}
     assert [a["cache"] for a in report["one_block_jobs"]] == ["cold", "warm"] * 2
     assert report["plans"]["join_repeat"]["worker_compiles"] == [0, 0]
     assert report["plans"]["pagerank"]["max_abs_delta_vs_solo"] == 0.0

@@ -29,6 +29,6 @@ def test_chip_smoke_serve_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     report = smoke.serve_phase(env)
     assert report["launches"] == report["expected_launches"] == {
         "tokenize": 0, "bitonic_sort": 4 + 2 + 32 + 2 + 2 + 8, "fused_fold": 4 + 2 + 32 + 2 + 2,
-        "pagerank": 0}
+        "pagerank": 0, "partition": 0}
     assert report["process"]["state_at_kill"] == "running"
     assert report["chaos"] == {"poison_job": 1, "deadline_exceeded": 1}

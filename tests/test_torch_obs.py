@@ -37,6 +37,7 @@ PORT_ONLY = {
     "sample_sort.sample": "span", "sample_sort.partition": "span", "sample_sort.local": "span",
     "sample_sort.records": "span", "sample_sort.rows": "counter",
     "sample_sort.retries": "counter", "sample_sort.host_syncs": "counter",
+    "shuffle.partition_launches": "counter",
 }
 
 KW = dict(block_lines=64, line_width=128, key_width=16, emits_per_line=8, sort_mode="hash")
