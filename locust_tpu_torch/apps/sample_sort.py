@@ -29,11 +29,14 @@ values in another order (the keys, the overflow and the retries are the
 same).
 
 Spans ``sample_sort.sample`` (the splitters), ``sample_sort.partition``
-(the buckets, the bins and the exchanges), ``sample_sort.local`` (the
-lex sort) and ``sample_sort.records`` (the records' gather into key
-order); counters ``sample_sort.rows`` (valid rows this rank sorted),
+(the buckets and the bins, then the decode of what arrived),
+``sample_sort.exchange`` (the keys' and the records' all-to-all alone),
+``sample_sort.local`` (the lex sort) and
+``sample_sort.records`` (the records' gather into key order); counters
+``sample_sort.rows`` (valid rows this rank sorted),
 ``sample_sort.retries`` (``sort_strings``' doublings) and
-``sample_sort.host_syncs`` (host reads of the sort's tensors).
+``sample_sort.host_syncs`` (host reads of the sort's tensors); the mesh
+counts the exchange's bytes (``mesh.all_to_all_bytes``).
 """
 
 from __future__ import annotations
@@ -51,10 +54,10 @@ from locust_tpu_torch.core.kv import KVBatch
 from locust_tpu_torch.ops.process_stage import _lexsort, sort_and_compact
 from locust_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, scatter_host_array, shard_rows
 from locust_tpu_torch.parallel.shuffle import (
-    exchange_bins,
     gather_batch_host,
     partition_packed,
     sized_bins,
+    unpack_bins,
 )
 
 
@@ -133,10 +136,17 @@ class DistributedSort:
             bucket = packing.lanes_geq_table(kv.key_lanes, splitters).sum(dim=-1)  # [N] in [0, n)
             bins, overflow, _, binned = partition_packed(
                 kv, self.n_dev, self.bin_capacity, bucket=bucket, payload=records)
-            received = exchange_bins(self.mesh, self.axis, bins)
-            moved = None
-            if records is not None:
-                moved = self.mesh.all_to_all(binned, self.axis).flatten(0, 1)
+        with obs.span("sample_sort.exchange"):
+            arrived = self.mesh.all_to_all(bins, self.axis)
+            moved = None if records is None else self.mesh.all_to_all(binned, self.axis)
+        # The sent bins are dead once their all-to-all returned (on one rank
+        # they are what arrived, and stay).
+        del bins, binned
+        # The decode of what arrived is the bins' work, not the exchange's.
+        with obs.span("sample_sort.partition"):
+            received = unpack_bins(arrived)
+            if moved is not None:
+                moved = moved.flatten(0, 1)
                 received = KVBatch(received.key_lanes, torch.arange(
                     received.size, dtype=torch.int32, device=moved.device), received.valid)
         with obs.span("sample_sort.local"):

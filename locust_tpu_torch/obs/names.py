@@ -5,9 +5,9 @@ Port of ``locust_tpu/obs/names.py``, copied whole: the two packages
 share one vocabulary, so a timeline of either reads the same.  Every
 JAX name keeps its kind here.  The port adds one section of its own, at
 the end of the dict: spans inside the fold, the reader thread, PageRank's
-job and the sample sort's phases, and the host-sync, iteration, sort and
-partition-kernel counters, which the JAX package (one traced ``lax.scan`` per fold) has
-no place for.
+job and the sample sort's phases, and the host-sync, iteration, sort,
+partition-kernel and all-to-all counters, which the JAX package (one
+traced ``lax.scan`` per fold) has no place for.
 
 Closed-registry stance (same as ``faultplan.SITES`` and the analysis rule
 table): a typo'd name at an emission site must fail LOUDLY — at runtime
@@ -107,13 +107,16 @@ NAMES = {
     "pagerank.iteration": "span",   # apps.pagerank: one pagerank_step on the host
     "pagerank.iterations": "counter",  # pagerank_step calls of pagerank()
     "sample_sort.sample": "span",   # apps.sample_sort: _splitters, to its own count reads
-    "sample_sort.partition": "span",  # apps.sample_sort: buckets, partition_packed, the exchanges
+    "sample_sort.partition": "span",  # apps.sample_sort: buckets, partition_packed; decode of arrivals
+    "sample_sort.exchange": "span",   # apps.sample_sort: the keys' and the records' all-to-all alone
     "sample_sort.local": "span",    # apps.sample_sort: the lex sort_and_compact of what arrived
     "sample_sort.records": "span",  # apps.sample_sort: sort_records' gather into key order
     "sample_sort.rows": "counter",  # valid rows a rank sorted
     "sample_sort.retries": "counter",     # sort_strings' doublings of the skew factor
     "sample_sort.host_syncs": "counter",  # host reads of the sample sort's tensors
     "shuffle.partition_launches": "counter",  # stable_partition calls that launched csrc/partition.cu
+    "mesh.all_to_all_calls": "counter",  # Mesh.all_to_all calls that reached the backend
+    "mesh.all_to_all_bytes": "counter",  # ... and the bytes of their send buffers
 }
 
 METRIC_KINDS = ("counter", "gauge", "histogram")

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from locust_tpu_torch import obs
 from locust_tpu_torch.engine import resolve_device
 
 DATA_AXIS = "data"
@@ -59,7 +60,8 @@ COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
 
 # What this process's collectives moved: calls, bytes sent and the host's
 # wall seconds per kind (staging through the host included; an axis of one
-# rank calls nothing and counts nothing).
+# rank calls nothing and counts nothing).  The all-to-alls are also counted
+# in the tracer's ``mesh.all_to_all_calls`` and ``mesh.all_to_all_bytes``.
 COMM = {kind: {"calls": 0, "bytes": 0, "s": 0.0}
         for kind in ("all_to_all", "all_reduce", "all_gather")}
 
@@ -216,6 +218,8 @@ class Mesh:
         dist.all_to_all_single(recv, send, group=self.group(axis))
         out = self._back(recv)
         _count("all_to_all", send, t0)
+        obs.metric_inc("mesh.all_to_all_calls")
+        obs.metric_inc("mesh.all_to_all_bytes", send.numel() * send.element_size())
         return out
 
     def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:

@@ -372,13 +372,19 @@ def partition_to_bins(batch: KVBatch, n_bins: int, bin_capacity: int,
     return bins[..., :n_lanes], bins[..., n_lanes], bins[..., n_lanes + 1] != 0, overflow, leftover
 
 
+def unpack_bins(bins: torch.Tensor) -> KVBatch:
+    """``partition_packed``'s packed bins (or what arrived of them) as one
+    batch, bin-major."""
+    n_lanes = bins.shape[-1] - 2
+    rows = bins.reshape(-1, n_lanes + 2)
+    return KVBatch(rows[:, :n_lanes], rows[:, n_lanes], rows[:, n_lanes + 1] != 0)
+
+
 def exchange_bins(mesh: Mesh, axis: str, bins: torch.Tensor) -> KVBatch:
     """One all-to-all of ``partition_packed``'s bins along ``axis``: bin
     ``i`` goes to the ``i``-th rank; returns what this rank received,
     sender-major."""
-    n_lanes = bins.shape[-1] - 2
-    recv = mesh.all_to_all(bins, axis).reshape(-1, n_lanes + 2)
-    return KVBatch(recv[:, :n_lanes], recv[:, n_lanes], recv[:, n_lanes + 1] != 0)
+    return unpack_bins(mesh.all_to_all(bins, axis))
 
 
 def merge_stats_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -34,10 +34,12 @@ PORT_ONLY = {
     "engine.fold.graph_replays": "counter",
     "pagerank.prep": "span", "pagerank.grouping": "span", "pagerank.iteration": "span",
     "pagerank.iterations": "counter",
-    "sample_sort.sample": "span", "sample_sort.partition": "span", "sample_sort.local": "span",
+    "sample_sort.sample": "span", "sample_sort.partition": "span",
+    "sample_sort.exchange": "span", "sample_sort.local": "span",
     "sample_sort.records": "span", "sample_sort.rows": "counter",
     "sample_sort.retries": "counter", "sample_sort.host_syncs": "counter",
-    "shuffle.partition_launches": "counter",
+    "shuffle.partition_launches": "counter", "mesh.all_to_all_calls": "counter",
+    "mesh.all_to_all_bytes": "counter",
 }
 
 KW = dict(block_lines=64, line_width=128, key_width=16, emits_per_line=8, sort_mode="hash")
@@ -333,6 +335,31 @@ def test_run_stream_records_the_jax_engine_spans_and_events(engines, tmp_path, a
     assert own == {"engine.stage_blocks": 8, "engine.fold.map": 8, "engine.fold.sort": 8,
                    "engine.fold.reduce": 8, "engine.fold.drain": 1, "stream.read": 9,
                    "metric engine.host_syncs": 4 + 1 + 2}
+
+
+def test_exchange_counts_nothing_on_a_world_of_one():
+    """An axis of one rank calls no collective: the sample sort's exchange
+    opens its span and the mesh's all-to-all counters stay unset (a world
+    of 4 counts its send buffers: tests/test_torch_terasort_world4.py)."""
+    from locust_tpu_torch.apps.sample_sort import DistributedSort
+    from locust_tpu_torch.parallel import make_mesh
+    from locust_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.shutdown()
+    try:
+        mesh = make_mesh(device="cpu")
+        tracer = obs.enable(process="unit")
+        x = torch.arange(12, dtype=torch.int32).reshape(4, 3)
+        assert mesh.all_to_all(x, "data") is x
+        records = torch.randint(0x20, 0x7F, (64, 100), dtype=torch.uint8,
+                                generator=torch.Generator().manual_seed(3))
+        DistributedSort(mesh, TConfig(key_width=12), 64).sort_records(records, 10)
+        assert "sample_sort.exchange" in [s[0] for s in tracer.spans()]
+        counters = obs.metrics_snapshot()["counters"]
+        assert counters["sample_sort.rows"] == 64
+        assert "mesh.all_to_all_calls" not in counters and "mesh.all_to_all_bytes" not in counters
+    finally:
+        mesh_mod.shutdown()
 
 
 def test_engine_config_trace_enables_the_process_tracer():

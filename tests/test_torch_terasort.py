@@ -124,8 +124,8 @@ def test_spans_and_counters(world, telemetry):
     tracer = obs.enable(process="unit")
     _sort(world, records, rows_per_device=512)
     names = [s[0] for s in tracer.spans()]
-    assert names == ["sample_sort.sample", "sample_sort.partition", "sample_sort.local",
-                     "sample_sort.records"]
+    assert names == ["sample_sort.sample", "sample_sort.partition", "sample_sort.exchange",
+                     "sample_sort.partition", "sample_sort.local", "sample_sort.records"]
     counters = obs.metrics_snapshot()["counters"]
     # The splitters' two count reads, then the overflow and the output's rows in one.
     assert counters == {"sample_sort.rows": 500, "sample_sort.host_syncs": 3}

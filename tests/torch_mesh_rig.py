@@ -515,8 +515,44 @@ def run_terasort(mesh, kind: str) -> dict:
             "overflow": np.array(overflow)}
 
 
+# The record sort's world of 4: "planted" records, 3,000 a rank (rows per
+# device the same), sorted with each rank's tracer on.  The planted
+# duplicates are the same keys on every rank, so their runs span ranks.
+TERASORT4 = (3000, 3000)
+
+
+def run_terasort4(mesh) -> dict:
+    """``run_terasort``'s world-of-4 case, traced: every rank's output in
+    rank order, the overflow, and each rank's span names and all-to-all
+    calls and bytes (``mesh.all_to_all_*``)."""
+    import torch.distributed as dist
+
+    from locust_tpu_torch import obs
+    from locust_tpu_torch.apps.sample_sort import DistributedSort
+    from locust_tpu_torch.config import EngineConfig
+
+    n, rows_per_device = TERASORT4
+    tracer = obs.enable(process=f"rank{mesh.rank}")
+    try:
+        got, overflow = DistributedSort(mesh, EngineConfig(key_width=12),
+                                        rows_per_device).sort_records(
+            terasort_input("planted", n, mesh.rank), KEY_BYTES)
+        counters = obs.metrics_snapshot()["counters"]
+        own = (got.cpu().numpy(), counters.get("mesh.all_to_all_calls", 0),
+               counters.get("mesh.all_to_all_bytes", 0), [s[0] for s in tracer.spans()])
+    finally:
+        obs.disable()
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, own)
+    return {"records": np.concatenate([p[0] for p in parts]),
+            "counts": np.array([p[0].shape[0] for p in parts]),
+            "overflow": np.array(overflow), "a2a_calls": np.array([p[1] for p in parts]),
+            "a2a_bytes": np.array([p[2] for p in parts]),
+            "spans": np.array([",".join(p[3]) for p in parts])}
+
+
 def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=(),
-                terasort=()) -> None:
+                terasort=(), terasort4=False) -> None:
     from locust_tpu_torch import apps
 
     for name in pagerank:
@@ -527,6 +563,8 @@ def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=
         out[f"sort_{name}"] = run_sort(apps, pkg, mesh, name)
     for name in terasort:
         tables[f"terasort_{name}"] = run_terasort(mesh, name)
+    if terasort4:
+        tables["terasort4"] = run_terasort4(mesh)
 
 
 APP_SUITES = {
@@ -534,6 +572,7 @@ APP_SUITES = {
     "apps_index": dict(index=tuple(INDEX)),
     "apps_sort": dict(sort=tuple(SORT)),
     "apps_terasort": dict(terasort=tuple(TERASORT)),
+    "apps_terasort4": dict(terasort4=True),
     "apps_world4": dict(pagerank=("sharded_1003", "sharded_dangling", "distributed_zipf"),
                         index=("oracle", "skew"),
                         sort=("random", "dups", "dups_retry", "dups_overflow")),
