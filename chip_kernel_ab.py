@@ -180,7 +180,7 @@ def _check_partition(torch, got, kv, bucket, words, n_bins, cap) -> None:
 
     bins, overflow, _, binned = got
     rows, want_overflow, want_binned = partition._plain(bucket, kv.valid, kv.key_lanes,
-                                                        kv.values, n_bins, cap, 0, words)
+                                                        kv.values, n_bins, cap, 0, words)[:3]
     if not torch.equal(bins.reshape(-1, bins.shape[-1]), rows) or int(overflow) != int(
             want_overflow):
         raise AssertionError(f"partition into {n_bins} bins: the kernel's bins differ "

@@ -1059,8 +1059,8 @@ _PARTITION_CHECKED: list | None = None
 def _check_partition_calls() -> list:
     """Hold the partition kernel against its plain version on the CPU at
     the first call of each shape in this process, exactly: every word of
-    the bins and the leftover, the overflow, and the payload in every
-    filled bin slot.  Installed once a process on ``parallel/shuffle``'s
+    the bins and the leftover, the overflow, each bin's total, and the
+    payload in every filled bin slot.  Installed once a process on ``parallel/shuffle``'s
     reference to the wrapper, which every shuffle, index and sort path
     calls; a CPU call passes through.  Returns the list each checked shape
     (rows, lanes, bins, capacity, leftover capacity, payload words) goes
@@ -1081,11 +1081,12 @@ def _check_partition_calls() -> list:
         if lanes.device.type != "cuda" or shape in seen:
             return out
         seen.add(shape)
-        want_rows, want_ovf, want_binned = plain(
+        want_rows, want_ovf, want_binned, want_totals = plain(
             *(t.cpu() for t in (bucket, valid, lanes, values)), *shape[2:5],
             None if payload is None else payload.cpu())
-        rows, overflow, binned = out
-        ok = _same_tensor(rows, want_rows) and int(overflow) == int(want_ovf)
+        rows, overflow, binned, totals = out
+        ok = (_same_tensor(rows, want_rows) and int(overflow) == int(want_ovf)
+              and _same_tensor(totals, want_totals))
         if payload is not None:
             filled = want_rows[:shape[2] * shape[3], -1].reshape(shape[2], shape[3]) != 0
             ok = ok and _same_tensor(binned.cpu()[filled], want_binned[filled])

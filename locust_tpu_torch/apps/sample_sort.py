@@ -10,7 +10,9 @@ recipe:
                (small) sample set identically and picks n_dev-1 splitters.
   2. PARTITION bucket = #splitters <= key (``core/packing.lanes_geq_table``,
                the lexicographic compare on packed lanes); scatter into
-               equal-capacity bins; one all-to-all, the range shuffle.
+               equal-capacity bins; the range shuffle hands each rank its
+               bin's filled prefix (``Mesh.all_to_all_v``, after one small
+               all-to-all of the counts), so what arrives is dense.
   3. LOCAL SORT each rank sorts what it received by its full key lanes
                (``ops/process_stage`` "lex" mode: exact byte order).
 
@@ -30,13 +32,14 @@ same).
 
 Spans ``sample_sort.sample`` (the splitters), ``sample_sort.partition``
 (the buckets and the bins, then the decode of what arrived),
-``sample_sort.exchange`` (the keys' and the records' all-to-all alone),
-``sample_sort.local`` (the lex sort) and
+``sample_sort.exchange`` (the counts' all-to-all and read, the keys' and
+the records' all-to-all), ``sample_sort.local`` (the lex sort) and
 ``sample_sort.records`` (the records' gather into key order); counters
 ``sample_sort.rows`` (valid rows this rank sorted),
-``sample_sort.retries`` (``sort_strings``' doublings) and
-``sample_sort.host_syncs`` (host reads of the sort's tensors); the mesh
-counts the exchange's bytes (``mesh.all_to_all_bytes``).
+``sample_sort.retries`` (``sort_strings``' doublings),
+``sample_sort.host_syncs`` (host reads of the sort's tensors) and
+``sample_sort.slots_skipped`` (the empty bin slots a rank did not
+send); the mesh counts the exchange's bytes (``mesh.all_to_all_bytes``).
 """
 
 from __future__ import annotations
@@ -66,10 +69,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _host_ints(*ts: torch.Tensor) -> list[int]:
-    """The scalar tensors' values on the host, in one read, counted in
-    ``sample_sort.host_syncs``."""
+    """The tensors' elements on the host, in order, in one read, counted
+    in ``sample_sort.host_syncs``."""
     obs.metric_inc("sample_sort.host_syncs")
-    return [int(v) for v in torch.stack([t.to(torch.int64) for t in ts]).tolist()]
+    return [int(v) for v in torch.cat([t.reshape(-1).to(torch.int64) for t in ts]).tolist()]
 
 
 def _record_words(records: torch.Tensor) -> torch.Tensor:
@@ -123,22 +126,44 @@ class DistributedSort:
         idx = (j * n_valid_samples // n_dev).clamp(0, sorted_lanes.shape[0] - 1)
         return sorted_lanes[idx]
 
+    def _exchange(self, bins: torch.Tensor, binned: torch.Tensor | None,
+                  filled: torch.Tensor):
+        """The range shuffle of each bin's filled prefix: the counts first
+        (one small all-to-all, then this rank's send and receive counts in
+        one read), then the keys' and the records' rows alone.  Returns
+        what arrived, dense and sender-major: the packed rows and the
+        records (or None)."""
+        n = self.n_dev
+        sizes = _host_ints(filled, self.mesh.all_to_all(filled, self.axis))
+        send, recv = sizes[:n], sizes[n:]
+        obs.metric_inc("sample_sort.slots_skipped", n * self.bin_capacity - sum(send))
+        arrived = self.mesh.all_to_all_v([bins[b, :c] for b, c in enumerate(send)], recv,
+                                         self.axis)
+        moved = None if binned is None else self.mesh.all_to_all_v(
+            [binned[b, :c] for b, c in enumerate(send)], recv, self.axis)
+        return arrived, moved
+
     def _step(self, keys_rows: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
               records: torch.Tensor | None = None):
         """This rank's body: sample, range shuffle, local sort.  Returns
         its sorted shard, the overflow summed over the ranks and, given
         ``records`` (one row for each of the batch's), the rows this rank
-        received, sender-major, which the shard's values then index."""
+        received, sender-major, which the shard's values then index.  On
+        more than one rank only the bins' filled prefixes travel, so the
+        shard holds the rows that arrived, every one valid; on one the bins
+        are what arrives, empty slots and all."""
         kv = KVBatch.from_bytes(keys_rows, values, valid)
+        shuffle = self.n_dev > 1
         with obs.span("sample_sort.sample"):
             splitters = self._splitters(kv.key_lanes, valid)
         with obs.span("sample_sort.partition"):
             bucket = packing.lanes_geq_table(kv.key_lanes, splitters).sum(dim=-1)  # [N] in [0, n)
-            bins, overflow, _, binned = partition_packed(
-                kv, self.n_dev, self.bin_capacity, bucket=bucket, payload=records)
+            # ``filled``: the bins' filled counts, on more than one rank only.
+            bins, overflow, _, binned, *filled = partition_packed(
+                kv, self.n_dev, self.bin_capacity, bucket=bucket, payload=records,
+                filled=shuffle)
         with obs.span("sample_sort.exchange"):
-            arrived = self.mesh.all_to_all(bins, self.axis)
-            moved = None if records is None else self.mesh.all_to_all(binned, self.axis)
+            arrived, moved = self._exchange(bins, binned, *filled) if shuffle else (bins, binned)
         # The sent bins are dead once their all-to-all returned (on one rank
         # they are what arrived, and stay).
         del bins, binned
@@ -146,7 +171,7 @@ class DistributedSort:
         with obs.span("sample_sort.partition"):
             received = unpack_bins(arrived)
             if moved is not None:
-                moved = moved.flatten(0, 1)
+                moved = moved.reshape(-1, moved.shape[-1])
                 received = KVBatch(received.key_lanes, torch.arange(
                     received.size, dtype=torch.int32, device=moved.device), received.valid)
         with obs.span("sample_sort.local"):
@@ -175,6 +200,11 @@ class DistributedSort:
                                         scatter_host_array(pv, self.mesh),
                                         scatter_host_array(pvalid, self.mesh))
         overflow, = _host_ints(overflow)
+        # The host gather takes shard_capacity rows a rank: pad what arrived.
+        pad = self.shard_capacity - table.size
+        if pad:
+            table = KVBatch.concat(table, KVBatch.empty(pad, table.key_lanes.shape[1],
+                                                        table.key_lanes.device))
         return SortResult(table, overflow, self.shard_capacity, self.mesh, self.axis)
 
     def sort_records(self, records, key_bytes: int) -> tuple[torch.Tensor, int]:

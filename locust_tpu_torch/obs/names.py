@@ -108,15 +108,16 @@ NAMES = {
     "pagerank.iterations": "counter",  # pagerank_step calls of pagerank()
     "sample_sort.sample": "span",   # apps.sample_sort: _splitters, to its own count reads
     "sample_sort.partition": "span",  # apps.sample_sort: buckets, partition_packed; decode of arrivals
-    "sample_sort.exchange": "span",   # apps.sample_sort: the keys' and the records' all-to-all alone
+    "sample_sort.exchange": "span",   # apps.sample_sort: the counts' all-to-all and read, the keys' and records' all_to_all_v
     "sample_sort.local": "span",    # apps.sample_sort: the lex sort_and_compact of what arrived
     "sample_sort.records": "span",  # apps.sample_sort: sort_records' gather into key order
     "sample_sort.rows": "counter",  # valid rows a rank sorted
     "sample_sort.retries": "counter",     # sort_strings' doublings of the skew factor
     "sample_sort.host_syncs": "counter",  # host reads of the sample sort's tensors
+    "sample_sort.slots_skipped": "counter",  # bin slots not sent: n_bins x bin_capacity - filled
     "shuffle.partition_launches": "counter",  # stable_partition calls that launched csrc/partition.cu
-    "mesh.all_to_all_calls": "counter",  # Mesh.all_to_all calls that reached the backend
-    "mesh.all_to_all_bytes": "counter",  # ... and the bytes of their send buffers
+    "mesh.all_to_all_calls": "counter",  # Mesh.all_to_all(_v) calls that reached the backend
+    "mesh.all_to_all_bytes": "counter",  # ... and the bytes they handed over
 }
 
 METRIC_KINDS = ("counter", "gauge", "histogram")

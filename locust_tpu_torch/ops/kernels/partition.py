@@ -14,6 +14,10 @@ rows the all-to-all sends (``L`` lanes, the value, a valid word):
   neither is counted in ``overflow``;
 - empty slots: zero lanes and value, valid word 0.
 
+Each bin's total, its valid rows before the capacity is applied, comes
+back beside the slots (the kernel's scan writes it); a bin's first
+``min(total, bin_capacity)`` slots are the filled ones.
+
 A row whose bucket lies outside ``[0, n_bins)`` goes nowhere, like an
 invalid row.  Given a ``payload`` (``[N, W]`` whose rows are whole
 4-byte words, as the sample sort's int32 record words are), each row's
@@ -49,7 +53,8 @@ _INDEX_LIMIT = 2**31
 def _plain(bucket, valid, lanes, values, n_bins, cap, lcap, payload):
     """The same slots as torch ops on any device: a stable sort of the
     buckets, each row's rank in its bin, and scatters of the packed rows
-    (and the payload) into them, a dump row taking the rest."""
+    (and the payload) into them, a dump row taking the rest; the bins'
+    totals are the sorted buckets' counts."""
     n, n_lanes = lanes.shape
     dev = lanes.device
     keep = valid & (bucket >= 0) & (bucket < n_bins)
@@ -74,7 +79,7 @@ def _plain(bucket, valid, lanes, values, n_bins, cap, lcap, payload):
         binned = payload.new_zeros((flat + 1, payload.shape[1]))
         binned.index_put_((torch.where(ok, dest, flat),), payload[sidx])
         binned = binned[:flat].reshape(n_bins, cap, payload.shape[1])
-    return rows[:dump], overflow, binned
+    return rows[:dump], overflow, binned, counts[:n_bins].to(torch.int32)
 
 
 @functools.cache
@@ -130,10 +135,12 @@ def stable_partition(bucket: torch.Tensor, valid: torch.Tensor, lanes: torch.Ten
     """Rows ``bucket`` (int64 ``[N]``), ``valid`` (bool ``[N]``),
     ``lanes`` (int32 ``[N, L]``) and ``values`` (int32 ``[N]``) into
     their slots, all contiguous on one device.  Returns ``(rows, overflow,
-    binned)``: ``rows`` int32 ``[n_bins * bin_capacity +
+    binned, totals)``: ``rows`` int32 ``[n_bins * bin_capacity +
     leftover_capacity, L + 2]``, the bins then the leftover; ``overflow``
     an int32 scalar tensor; ``binned`` the payload's ``[n_bins,
-    bin_capacity, W]`` or None.  A payload needs ``leftover_capacity``
+    bin_capacity, W]`` or None; ``totals`` int32 ``[n_bins]``, each bin's
+    valid rows, its capacity not applied (on a card a view of the scan's
+    output: no launch of its own).  A payload needs ``leftover_capacity``
     0."""
     n_bins, cap, lcap = int(n_bins), int(bin_capacity), int(leftover_capacity)
     _check(bucket, valid, lanes, values, n_bins, cap, lcap, payload)
@@ -165,7 +172,8 @@ def stable_partition(bucket: torch.Tensor, valid: torch.Tensor, lanes: torch.Ten
         raise KernelLaunchError(f"partition kernel launch failed: cudaError {rc}")
     stable_partition.launches += 1
     obs.metric_inc("shuffle.partition_launches")
-    return rows, overflow, binned
+    totals = workspace[n_bins * tiles:n_bins * tiles + n_bins]
+    return rows, overflow, binned, totals
 
 
 stable_partition.launches = 0

@@ -67,9 +67,13 @@ COMM = {kind: {"calls": 0, "bytes": 0, "s": 0.0}
 
 
 def _count(kind: str, t: torch.Tensor, t0: float) -> None:
+    _count_bytes(kind, t.numel() * t.element_size(), t0)
+
+
+def _count_bytes(kind: str, nbytes: int, t0: float) -> None:
     c = COMM[kind]
     c["calls"] += 1
-    c["bytes"] += t.numel() * t.element_size()
+    c["bytes"] += nbytes
     c["s"] += time.perf_counter() - t0
 
 
@@ -220,6 +224,37 @@ class Mesh:
         _count("all_to_all", send, t0)
         obs.metric_inc("mesh.all_to_all_calls")
         obs.metric_inc("mesh.all_to_all_bytes", send.numel() * send.element_size())
+        return out
+
+    def all_to_all_v(self, blocks: list[torch.Tensor], recv_rows: list[int],
+                     axis: str) -> torch.Tensor:
+        """Block ``i`` of ``blocks`` (contiguous, any number of rows of one
+        shape and dtype) goes to the ``i``-th rank along ``axis``, which
+        sends this rank ``recv_rows[i]`` rows.  Returns what arrived as one
+        dense tensor, sender-major.  NCCL takes the blocks as they are and
+        receives into views of one buffer; gloo refuses unequal blocks in
+        that form, so the blocks are joined (on the host, where gloo stages
+        anyway) and split by sizes.  Counted as one all-to-all of the
+        blocks' bytes, this rank's own block included."""
+        if self.axis_size(axis) == 1:
+            return blocks[0]
+        t0 = time.perf_counter()
+        group = self.group(axis)
+        sizes = [b.shape[0] for b in blocks]
+        if self.backend == "gloo":
+            send = torch.cat([self._out(b) for b in blocks])
+            recv = send.new_empty((sum(recv_rows), *send.shape[1:]))
+            dist.all_to_all_single(recv, send, recv_rows, sizes, group=group)
+            out = self._back(recv)
+        else:
+            first = blocks[0]
+            out = first.new_empty((sum(recv_rows), *first.shape[1:]))
+            dist.all_to_all(list(out.split(recv_rows)), [b.contiguous() for b in blocks],
+                            group=group)
+        nbytes = sum(b.numel() * b.element_size() for b in blocks)
+        _count_bytes("all_to_all", nbytes, t0)
+        obs.metric_inc("mesh.all_to_all_calls")
+        obs.metric_inc("mesh.all_to_all_bytes", nbytes)
         return out
 
     def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:

@@ -331,7 +331,7 @@ class RoundStats:
 
 def partition_packed(batch: KVBatch, n_bins: int, bin_capacity: int,
                      bucket: torch.Tensor | None = None, leftover_capacity: int = 0,
-                     payload: torch.Tensor | None = None):
+                     payload: torch.Tensor | None = None, filled: bool = False):
     """Scatter a batch into ``[n_bins, bin_capacity]`` bins by key hash,
     packed as the all-to-all sends them.
 
@@ -348,17 +348,21 @@ def partition_packed(batch: KVBatch, n_bins: int, bin_capacity: int,
     Returns ``(bins, overflow, leftover, binned)``: ``bins`` int32
     ``[B, C, L + 2]`` (lanes, value, a valid word), ``overflow`` an int32
     scalar tensor, ``leftover`` a ``KVBatch`` of ``leftover_capacity``
-    rows, ``binned`` the payload's ``[B, C, W]`` or None.
+    rows, ``binned`` the payload's ``[B, C, W]`` or None.  With
+    ``filled``, a fifth: int32 ``[B]``, each bin's filled slots
+    (``min(total, C)``), which are its first.
     """
     lanes = batch.key_lanes
     if bucket is None:
         bucket = packing.fold_hash(lanes) % n_bins
-    rows, overflow, binned = stable_partition(bucket, batch.valid, lanes, batch.values, n_bins,
-                                              bin_capacity, leftover_capacity, payload)
+    rows, overflow, binned, totals = stable_partition(
+        bucket, batch.valid, lanes, batch.values, n_bins, bin_capacity, leftover_capacity,
+        payload)
     n_lanes, flat = lanes.shape[1], n_bins * bin_capacity
     left = rows[flat:]
-    return (rows[:flat].reshape(n_bins, bin_capacity, n_lanes + 2), overflow,
-            KVBatch(left[:, :n_lanes], left[:, n_lanes], left[:, n_lanes + 1] != 0), binned)
+    out = (rows[:flat].reshape(n_bins, bin_capacity, n_lanes + 2), overflow,
+           KVBatch(left[:, :n_lanes], left[:, n_lanes], left[:, n_lanes + 1] != 0), binned)
+    return (*out, totals.clamp(max=bin_capacity)) if filled else out
 
 
 def partition_to_bins(batch: KVBatch, n_bins: int, bin_capacity: int,

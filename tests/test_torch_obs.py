@@ -38,7 +38,7 @@ PORT_ONLY = {
     "sample_sort.exchange": "span", "sample_sort.local": "span",
     "sample_sort.records": "span", "sample_sort.rows": "counter",
     "sample_sort.retries": "counter", "sample_sort.host_syncs": "counter",
-    "shuffle.partition_launches": "counter", "mesh.all_to_all_calls": "counter",
+    "sample_sort.slots_skipped": "counter", "shuffle.partition_launches": "counter", "mesh.all_to_all_calls": "counter",
     "mesh.all_to_all_bytes": "counter",
 }
 
@@ -339,8 +339,10 @@ def test_run_stream_records_the_jax_engine_spans_and_events(engines, tmp_path, a
 
 def test_exchange_counts_nothing_on_a_world_of_one():
     """An axis of one rank calls no collective: the sample sort's exchange
-    opens its span and the mesh's all-to-all counters stay unset (a world
-    of 4 counts its send buffers: tests/test_torch_terasort_world4.py)."""
+    opens its span, sends its bins as they are (no counts read, no slot
+    skipped: 3 host reads) and the mesh's all-to-all counters stay unset
+    (a world of 4 counts the filled rows it hands over and the slots it
+    skips: tests/test_torch_terasort_world4.py)."""
     from locust_tpu_torch.apps.sample_sort import DistributedSort
     from locust_tpu_torch.parallel import make_mesh
     from locust_tpu_torch.parallel import mesh as mesh_mod
@@ -356,8 +358,10 @@ def test_exchange_counts_nothing_on_a_world_of_one():
         DistributedSort(mesh, TConfig(key_width=12), 64).sort_records(records, 10)
         assert "sample_sort.exchange" in [s[0] for s in tracer.spans()]
         counters = obs.metrics_snapshot()["counters"]
-        assert counters["sample_sort.rows"] == 64
+        assert counters["sample_sort.rows"] == 64 and counters["sample_sort.host_syncs"] == 3
+        assert "sample_sort.slots_skipped" not in counters
         assert "mesh.all_to_all_calls" not in counters and "mesh.all_to_all_bytes" not in counters
+        assert mesh.all_to_all_v([x], [4], "data") is x
     finally:
         mesh_mod.shutdown()
 

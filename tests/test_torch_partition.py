@@ -3,7 +3,9 @@
 ``parallel/shuffle`` functions over it): slot for slot against the
 partition walked row by row in Python, at 1, 2, 4, 7 and 64 bins, with
 bins that spill into the leftover and past it, invalid rows and buckets
-out of range; ``partition_to_bins`` as views of the packed bins;
+out of range, each bin's total; the filled counts of bins at, under and
+over capacity (on a card too, where there is one); ``partition_to_bins``
+as views of the packed bins;
 ``exchange_bins`` on the packed bins against the three tensors packed by
 hand; the wrapper's refusals; and the launch counter's registration.
 The kernel against this plain version on a card:
@@ -44,17 +46,49 @@ def test_plain_partition_equals_the_row_by_row_walk(case):
     bucket, valid, lanes, values, payload = cases.batch(
         n, n_bins, seed=n, hot=hot, out_of_range=0.02,
         payload_shape=None if words is None else (words,))
-    want_rows, want_ovf, want_binned = cases.slots_by_hand(bucket, valid, lanes, values, n_bins,
-                                                           cap, lcap, payload)
-    rows, overflow, binned = partition.stable_partition(bucket, valid, lanes, values, n_bins,
-                                                        cap, lcap, payload)
+    want_rows, want_ovf, want_binned, want_totals = cases.slots_by_hand(
+        bucket, valid, lanes, values, n_bins, cap, lcap, payload)
+    rows, overflow, binned, totals = partition.stable_partition(bucket, valid, lanes, values,
+                                                                n_bins, cap, lcap, payload)
     assert rows.dtype == torch.int32 and np.array_equal(rows.numpy(), want_rows)
     assert overflow.dtype == torch.int32 and int(overflow) == want_ovf
+    assert totals.dtype == torch.int32 and totals.tolist() == want_totals
     assert (binned is None) == (payload is None)
     if binned is not None:
         assert np.array_equal(binned.numpy(), want_binned)
     if "spill" in case or "overflow" in case:
         assert want_ovf > 0 or want_rows[n_bins * cap:, -1].any()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_filled_counts_at_under_and_over_capacity(device):
+    """Each bin's total from ``stable_partition`` and its filled slots from
+    ``partition_packed(filled=True)``: on the CPU against the walk by hand,
+    on a card the kernel's against the plain version's; the filled slots
+    are each bin's first, the rest empty."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the partition kernel runs there")
+    cap = 3000
+    (bucket, valid, lanes, values), want_totals = cases.bins_at_under_and_over(cap, seed=11)
+    want = cases.slots_by_hand(bucket, valid, lanes, values, 4, cap, 0)
+    assert want[3] == want_totals
+    plain = partition.stable_partition(bucket, valid, lanes, values, 4, cap)
+    assert plain[3].tolist() == want_totals
+    dev = torch.device(device)
+    args = [t.to(dev) for t in (bucket, valid, lanes, values)]
+    rows, overflow, binned, totals = partition.stable_partition(*args, 4, cap)
+    assert binned is None and totals.device.type == device and totals.dtype == torch.int32
+    assert totals.tolist() == want_totals and int(overflow) == cap + 17
+    assert torch.equal(rows.cpu(), plain[0])
+    bins, overflow2, _, _, filled = shuffle.partition_packed(
+        KVBatch(args[2], args[3], args[1]), 4, cap, bucket=args[0], filled=True)
+    assert filled.dtype == torch.int32 and filled.tolist() == [cap, cap // 3, cap, 0]
+    assert int(overflow2) == cap + 17
+    valid_word = bins[..., -1].cpu() != 0
+    for b, f in enumerate(filled.tolist()):
+        assert bool(valid_word[b, :f].all()) and not bool(valid_word[b, f:].any())
+    assert len(shuffle.partition_packed(KVBatch(args[2], args[3], args[1]), 4, cap,
+                                        bucket=args[0])) == 4
 
 
 def test_partition_to_bins_views_the_packed_bins():

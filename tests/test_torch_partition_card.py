@@ -1,8 +1,9 @@
 """PyTorch port, the shuffle's stable counting partition kernel
 (``csrc/partition.cu``) on a card against its plain version on the CPU,
 slot for slot: the bins and the leftover (every word, empty slots
-included), the overflow, and the payload byte for byte in every filled
-bin slot (the kernel leaves an empty slot's payload unwritten).  At 1, 2,
+included), the overflow, each bin's total, and the payload byte for byte
+in every filled bin slot (the kernel leaves an empty slot's payload
+unwritten).  At 1, 2,
 4, 7 and 64 bins; skewed buckets whose bins spill into a leftover, with
 none, and past it; invalid rows and buckets out of range scattered through
 the batch; row counts that are not a multiple of the kernel's tile;
@@ -60,15 +61,16 @@ def test_card_partition_equals_the_plain_version(card, case):
     shape, dtype = payload_of if payload_of is not None else (None, np.int32)
     args = cases.batch(n, n_bins, seed=n + n_bins, hot=hot, invalid=0.05, out_of_range=0.01,
                        payload_shape=shape, payload_dtype=dtype)
-    want_rows, want_ovf, want_binned = stable_partition(*args[:4], n_bins, cap, lcap, args[4])
+    want_rows, want_ovf, want_binned, want_totals = stable_partition(*args[:4], n_bins, cap,
+                                                                     lcap, args[4])
     before = stable_partition.launches
-    rows, overflow, binned = stable_partition(
+    rows, overflow, binned, totals = stable_partition(
         *(t.to(card) for t in args[:4]), n_bins, cap, lcap,
         None if args[4] is None else args[4].to(card))
     assert stable_partition.launches == before + 1
     torch.cuda.synchronize()
     assert rows.device.type == "cuda" and torch.equal(rows.cpu(), want_rows)
-    assert int(overflow) == int(want_ovf)
+    assert int(overflow) == int(want_ovf) and torch.equal(totals.cpu(), want_totals)
     if "spill" in case or "overflow" in case:
         assert int(want_ovf) > 0 or bool(want_rows[n_bins * cap:, -1].any())
     if args[4] is None:

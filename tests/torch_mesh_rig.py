@@ -478,10 +478,16 @@ def terasort_input(kind: str, n: int, seed: int) -> np.ndarray:
     """``[n, 100]`` uint8 records: ``gensort`` (uniform printable 10-byte
     keys), ``planted`` (keys sharing 8- and 9-byte prefixes, and exact
     duplicates), ``binary`` (key bytes over 0..255, so unsigned order
-    differs from signed) or ``padded`` (as gensort, a few records).  Bytes
-    12-19 hold the record's number, so input order is visible."""
+    differs from signed), ``padded`` (as gensort, a few records), ``hot``
+    (three records in five share one key) or ``one_key`` (every record
+    the same key).  Bytes 12-19 hold the record's number, so input order
+    is visible."""
     rng = np.random.default_rng([seed, len(kind)])
     rec = rng.integers(0x20, 0x7F, (n, RECORD_BYTES), dtype=np.uint8)
+    if kind == "hot":
+        rec[np.arange(n) % 5 < 3, :KEY_BYTES] = np.frombuffer(b"HotKey!!!!", np.uint8)
+    if kind == "one_key":
+        rec[:, :KEY_BYTES] = np.frombuffer(b"SameKey!!!", np.uint8)
     if kind == "binary":
         rec[:, :KEY_BYTES] = rng.integers(0, 256, (n, KEY_BYTES), dtype=np.uint8)
         rec[: n // 3, :2] = rng.choice(np.array([0x00, 0x7F, 0x80, 0xFF], np.uint8), (n // 3, 2))
@@ -551,6 +557,115 @@ def run_terasort4(mesh) -> dict:
             "spans": np.array([",".join(p[3]) for p in parts])}
 
 
+# The record sort's other world-of-4 cases: name -> (kind, records on each
+# rank, rows_per_device, skew_factor).  ``skewed`` overflows the hot key's
+# bin on every rank; ``empty_rank``'s rank 2 sends nothing; ``one_key``
+# sends every record to rank 3, each bin at its capacity, so ranks 0-2
+# receive nothing and rank 3's ties come from every rank.
+TERASORT4_CASES = {
+    "skewed": ("hot", (600, 600, 600, 600), 600, 1.0),
+    "empty_rank": ("gensort", (500, 500, 0, 500), 512, 2.0),
+    "one_key": ("one_key", (300, 300, 300, 300), 300, 4.0),
+}
+
+
+def run_terasort4_case(mesh, name: str) -> dict:
+    """One ``TERASORT4_CASES`` sort, traced: every rank's output in rank
+    order, the overflow, the splitters (the same on every rank) and each
+    rank's rise of ``sample_sort.slots_skipped``, ``.host_syncs`` and the
+    mesh's all-to-all calls and bytes."""
+    import torch.distributed as dist
+
+    from locust_tpu_torch import obs
+    from locust_tpu_torch.apps.sample_sort import DistributedSort
+    from locust_tpu_torch.config import EngineConfig
+
+    kind, counts, rows_per_device, skew = TERASORT4_CASES[name]
+    sorter = DistributedSort(mesh, EngineConfig(key_width=12), rows_per_device,
+                             skew_factor=skew)
+    splitters, real = [], sorter._splitters
+
+    def spy(lanes, valid):
+        splitters.append(real(lanes, valid))
+        return splitters[-1]
+
+    sorter._splitters = spy
+    obs.enable(process=f"rank{mesh.rank}")
+    try:
+        got, overflow = sorter.sort_records(
+            terasort_input(kind, counts[mesh.rank], mesh.rank), KEY_BYTES)
+        c = obs.metrics_snapshot()["counters"]
+        own = (got.cpu().numpy(), [c.get(k, 0) for k in (
+            "sample_sort.slots_skipped", "sample_sort.host_syncs", "mesh.all_to_all_calls",
+            "mesh.all_to_all_bytes")])
+    finally:
+        obs.disable()
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, own)
+    return {f"{name}_records": np.concatenate([p[0] for p in parts]),
+            f"{name}_counts": np.array([p[0].shape[0] for p in parts]),
+            f"{name}_overflow": np.array(overflow),
+            f"{name}_splitters": splitters[0].cpu().numpy(),
+            f"{name}_cap": np.array(sorter.bin_capacity),
+            f"{name}_counters": np.array([p[1] for p in parts])}
+
+
+# The split-size all-to-all in a world of 4: A2AV_SIZES[s][d] rows go from
+# rank s to rank d.  Rank 0 sends rank 1 nothing, rank 3 sends rank 2
+# nothing, rank 1 sends nothing at all and receives nothing.
+A2AV_SIZES = ((3, 0, 5, 1), (0, 0, 0, 0), (2, 0, 7, 4), (1, 0, 0, 6))
+
+
+def a2av_block(sender: int, dest: int) -> np.ndarray:
+    """The ``[A2AV_SIZES[sender][dest], 3]`` int32 rows ``(sender, dest,
+    j)`` that rank ``sender`` sends rank ``dest``."""
+    rows = A2AV_SIZES[sender][dest]
+    return np.stack([np.full(rows, sender), np.full(rows, dest), np.arange(rows)],
+                    axis=1).astype(np.int32)
+
+
+def run_a2av(mesh) -> dict:
+    """``Mesh.all_to_all_v`` of the ``A2AV_SIZES`` blocks along the world's
+    ``data`` axis and along the ``slice`` axis of a ``[4, 1]`` mesh, and
+    of one block along that mesh's ``data`` axis of one rank (the
+    identity); each rank's result and its rise of the mesh's all-to-all
+    calls and bytes after each."""
+    import torch
+    import torch.distributed as dist
+
+    from locust_tpu_torch import obs
+    from locust_tpu_torch.parallel import make_mesh_2d
+
+    r = mesh.rank
+    blocks = [torch.from_numpy(a2av_block(r, d)) for d in range(mesh.size)]
+    recv = [A2AV_SIZES[s][r] for s in range(mesh.size)]
+    mesh2 = make_mesh_2d(4, 1, device="cpu")
+    obs.enable(process=f"rank{r}")
+    seen = []
+
+    def counters():
+        c = obs.metrics_snapshot()["counters"]
+        seen.append([c.get("mesh.all_to_all_calls", 0), c.get("mesh.all_to_all_bytes", 0)])
+
+    try:
+        got = mesh.all_to_all_v(blocks, recv, "data")
+        counters()
+        along = mesh2.all_to_all_v(blocks, recv, "slice")
+        counters()
+        identity = mesh2.all_to_all_v(blocks[:1], recv[:1], "data") is blocks[0]
+        counters()
+    finally:
+        obs.disable()
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, (got.numpy(), along.numpy(), identity, seen))
+    return {"got": np.concatenate([p[0] for p in parts]),
+            "along": np.concatenate([p[1] for p in parts]),
+            "counts": np.array([p[0].shape[0] for p in parts]),
+            "along_counts": np.array([p[1].shape[0] for p in parts]),
+            "identity": np.array([p[2] for p in parts]),
+            "counters": np.array([p[3] for p in parts])}
+
+
 def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=(),
                 terasort=(), terasort4=False) -> None:
     from locust_tpu_torch import apps
@@ -565,6 +680,9 @@ def _suite_apps(pkg, mesh, out: dict, tables: dict, pagerank=(), index=(), sort=
         tables[f"terasort_{name}"] = run_terasort(mesh, name)
     if terasort4:
         tables["terasort4"] = run_terasort4(mesh)
+        tables["terasort4_cases"] = {k: v for name in TERASORT4_CASES
+                                     for k, v in run_terasort4_case(mesh, name).items()}
+        tables["a2av"] = run_a2av(mesh)
 
 
 APP_SUITES = {
